@@ -6,20 +6,27 @@
 Phases, each of which fails the run if it fails:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build both hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build every hand-written CUDA kernel from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
 3. hold each kernel against its plain PyTorch version at the serving
    shapes of smollm-135m, and time the kernel, the plain version and a
    PyTorch library yardstick beside the least time the card could take;
-4. a small end-to-end reference: the smoke config at float32 served on the
-   card (kernels) and on the CPU (plain versions) must emit identical tokens;
+4. small end-to-end references: the smoke config at float32 served on the
+   card (kernels) and on the CPU (plain versions) must emit identical
+   tokens, on the chunked path and on the bucketed-prefill path;
 5. the main path at full width: smollm-135m ``CONFIG`` in bf16 with seeded
    random weights, ``ServingEngine(max_batch=8, max_len=1024)`` draining 16
-   requests; every request completes, pages are conserved, and both kernels
-   were launched on the way (launch counters zeroed just before);
+   requests; every request completes, pages are conserved, and both of its
+   kernels were launched on the way (launch counters zeroed just before);
+5b. the bucketed-prefill path at full width: the same model and requests
+   with ``chunked_prefill=False``; every request completes, pages are
+   conserved, and the flash-attention, paged-decode and greedy-epilogue
+   kernels were launched (counters zeroed just before); it prints tokens/s,
+   prefill occupancy and the share of requests whose tokens equal phase 5's,
+   and the same share for both paths at float32;
 6. the paper's loop on that model: ``ServeBackend`` with the ``appdata``
    policy over a seeded bursty request stream;
-7. a short profiled window of the main path (device time by kernel).
+7. short profiled windows of both paths (device time by kernel).
 
 The second-to-last line of stdout is the ``kernels`` JSON record, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -233,8 +240,185 @@ def check_lmhead(dev, flush) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
+def check_flash(dev, flush) -> dict:
+    """flash attention at the bucketed prefill shape of smollm-135m: 8 rows
+    of a 512 bucket, 9 query / 3 kv heads of 64; f32 and bf16, window -1
+    and 64 (a local layer)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
+
+    B, S, Hq, Hkv, D = 8, 512, 9, 3, 64
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    q = torch.randn((B, S, Hq, D), generator=g, device=dev)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    errs = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for window in (-1, 64):
+            qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+            out = flash_attention_dyn(qq, kk, vv, window)
+            torch.cuda.synchronize()
+            ref = flash_attention_plain(qq, kk, vv, window)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = 1e-4 if name == "float32" else 2e-2
+            log(f"[kernels] flash_attention {name} window={window}: "
+                f"max |kernel - plain| = {err:.3e} (tol {tol})")
+            if not (err <= tol and torch.isfinite(out).all()):
+                raise AssertionError(f"flash_attention {name} window={window} "
+                                     f"disagrees with its plain version: {err}")
+            errs[(name, window)] = err
+
+    qq, kk, vv = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    ms = timed_ms(lambda: flash_attention_dyn(qq, kk, vv, -1), flush=flush)
+    plain_ms = timed_ms(lambda: flash_attention_plain(qq, kk, vv, -1), flush=flush)
+    qt, kt, vt = qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    lib_err = (lib().transpose(1, 2).float()
+               - flash_attention_plain(qq, kk, vv, -1).float()).abs().max().item()
+    library_ms = timed_ms(lib, flush=flush)
+    # least time: q, k, v read once, out written once; flops: QK^T and PV
+    # over the causal pairs
+    n_bytes = (2 * qq.numel() + kk.numel() + vv.numel()) * qq.element_size()
+    flops = 4.0 * D * Hq * B * (S * (S + 1) // 2)
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    log(f"[kernels] flash_attention bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), bound {b_ms:.5f} ms "
+        f"({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
+            "max_abs_err": errs[("bfloat16", -1)], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def check_paged_decode(dev, flush) -> dict:
+    """paged decode attention at the bucketed decode shape of smollm-135m:
+    8 rows of one query, lengths 64 .. 640, 9 query / 3 kv heads of 64,
+    16-token pages, 64 pages a row; bf16 and int8 pages, window -1 and 64."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_paged, paged_decode_attention_plain)
+    from repro_torch.serving.kvcache import _vector_mask, paged_gather
+
+    B, Hq, Hkv, D, ps, n = 8, 9, 3, 64, 16, 64
+    P = B * n + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    lengths = torch.tensor([64, 97, 160, 255, 321, 448, 512, 640], dtype=torch.int32,
+                           device=dev)
+    perm = torch.randperm(P - 1, generator=g, device=dev).to(torch.int32) + 1
+    tbl = torch.zeros((B, n), dtype=torch.int32, device=dev)   # dead entries: page 0
+    n_live = [-(-int(x) // ps) for x in lengths.tolist()]
+    for b in range(B):
+        tbl[b, :n_live[b]] = perm[b * n:b * n + n_live[b]]
+    q = torch.randn((B, 1, Hq, D), generator=g, device=dev).bfloat16()
+    kb = torch.randn((P, ps, Hkv, D), generator=g, device=dev).bfloat16()
+    vb = torch.randn((P, ps, Hkv, D), generator=g, device=dev).bfloat16()
+    kb[0] = vb[0] = 1e3                                        # trash-page garbage
+    k8 = torch.randint(-127, 128, (P, ps, Hkv, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (P, ps, Hkv, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    k8[0] = v8[0] = 127
+    ks = torch.rand((P, ps, Hkv, 1), generator=g, device=dev) * 0.02 + 1e-3
+    vs = torch.rand((P, ps, Hkv, 1), generator=g, device=dev) * 0.02 + 1e-3
+    variants = {"bfloat16": (kb, vb, {}), "int8": (k8, v8, {"k_scale": ks, "v_scale": vs})}
+    errs = {}
+    for name, (kk, vv, sc) in variants.items():
+        for window in (-1, 64):
+            args = (q, kk, vv, tbl, lengths)
+            out = decode_attention_paged(*args, window=window, **sc)
+            torch.cuda.synchronize()
+            ref = paged_decode_attention_plain(*args, window=window, **sc)
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"[kernels] paged_decode_attention {name} window={window}: "
+                f"max |kernel - plain| = {err:.3e} (tol 2e-2)")
+            if not (err <= 2e-2 and torch.isfinite(out).all()):
+                raise AssertionError(f"paged_decode_attention {name} window={window} "
+                                     f"disagrees with its plain version: {err}")
+            errs[(name, window)] = err
+
+    args = (q, kb, vb, tbl, lengths)
+    ms = timed_ms(lambda: decode_attention_paged(*args, window=-1), flush=flush)
+    plain_ms = timed_ms(lambda: paged_decode_attention_plain(*args, window=-1), flush=flush)
+    kd = paged_gather(kb, tbl).transpose(1, 2)                 # (B, Hkv, S, D)
+    vd = paged_gather(vb, tbl).transpose(1, 2)
+    mask = _vector_mask(n * ps, lengths - 1, -1)[:, None]      # (B, 1, 1, S)
+    qt = q.transpose(1, 2)                                     # (B, Hq, 1, D)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, enable_gqa=True)
+
+    lib_err = (lib().transpose(1, 2).float()
+               - paged_decode_attention_plain(*args, window=-1).float()).abs().max().item()
+    library_ms = timed_ms(lib, flush=flush)
+    # least time: each live page read once, q read and out written once;
+    # flops: QK^T and PV over the keys each row attends
+    n_bytes = (2 * q.numel() * q.element_size() + sum(n_live) * 2 * ps * Hkv * D * 2
+               + tbl.numel() * 4 + lengths.numel() * 4)
+    flops = 4.0 * Hq * D * int(lengths.sum())
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    log(f"[kernels] paged_decode_attention bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), bound {b_ms:.5f} ms "
+        f"({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:288",
+            "max_abs_err": errs[("bfloat16", -1)], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def check_greedy(dev, flush) -> dict:
+    """greedy epilogue over the decode step's (8, 49152) f32 logits, plus a
+    case of exact ties."""
+    import torch
+    from repro_torch.kernels.sampling.ops import greedy_epilogue, greedy_epilogue_plain
+
+    B, V = 8, 49152
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.randn((B, V), generator=g, device=dev) * 3.0
+    tok, lp = greedy_epilogue(x)
+    torch.cuda.synchronize()
+    tok_p, lp_p = greedy_epilogue_plain(x)
+    err = (lp - lp_p).abs().max().item()
+    xi = torch.randint(-4, 5, (B, V), generator=g, device=dev).float()
+    xi[0, 7] = xi[0, 3000] = xi[0, V - 1] = 9.0
+    tok_t, lp_t = greedy_epilogue(xi)
+    torch.cuda.synchronize()
+    tok_tp, lp_tp = greedy_epilogue_plain(xi)
+    ok = (torch.equal(tok, tok_p) and err <= 1e-4 and torch.equal(tok_t, tok_tp)
+          and int(tok_t[0]) == 7 and (lp_t - lp_tp).abs().max().item() <= 1e-4)
+    log(f"[kernels] greedy_epilogue f32: tokens equal {bool(torch.equal(tok, tok_p))}, "
+        f"max |lp - plain| = {err:.3e} (tol 1e-4); ties: row 0 -> {int(tok_t[0])} "
+        f"(first maximal index 7), all rows equal to plain {bool(torch.equal(tok_t, tok_tp))}")
+    if not ok:
+        raise AssertionError("greedy_epilogue disagrees with its plain version")
+    ms = timed_ms(lambda: greedy_epilogue(x), flush=flush)
+    plain_ms = timed_ms(lambda: greedy_epilogue_plain(x), flush=flush)
+
+    def lib():
+        return x.max(dim=-1), torch.logsumexp(x, dim=-1)
+
+    library_ms = timed_ms(lib, flush=flush)
+    n_bytes = B * V * 4 + B * 8
+    flops = 4.0 * B * V
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    log(f"[kernels] greedy_epilogue f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"max+logsumexp {library_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}: {n_bytes / 1e6:.2f} MB)")
+    return {"name": "greedy_epilogue", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lmhead_greedy.cu",
+            "replaces": "src/repro/kernels/sampling/kernel.py:63",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------------------------
-# phases 4-7: the serving path
+# phases 4-7: the serving paths
 # ---------------------------------------------------------------------------------
 
 def to_device(tree, dev):
@@ -245,7 +429,7 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def small_reference(dev) -> None:
+def small_reference(dev, *, chunked: bool = True) -> None:
     """Smoke config at float32: the engine on the card (kernels) and on the
     CPU (plain versions) emit identical greedy tokens."""
     import dataclasses
@@ -262,7 +446,8 @@ def small_reference(dev) -> None:
         model = build_model(cfg, device=where)
         params = to_device(build_model(cfg, device="cpu").init_params(SEED), where)
         eng = ServingEngine(model, params, ServeConfig(max_batch=4, max_len=64, page_size=8,
-                                                       chunk_size=8, draft_len=4),
+                                                       chunk_size=8, draft_len=4,
+                                                       chunked_prefill=chunked),
                             device=where)
         rng = np.random.default_rng(SEED)
         for i in range(6):
@@ -273,22 +458,31 @@ def small_reference(dev) -> None:
         outs[where] = {r.rid: (r.output, r.score) for r in eng.completed}
     same = all(outs["cpu"][r][0] == outs["cuda"][r][0] for r in outs["cpu"])
     dscore = max(abs(outs["cpu"][r][1] - outs["cuda"][r][1]) for r in outs["cpu"])
-    log(f"[reference] smoke f32 engine, card vs CPU: tokens identical {same}, "
+    log(f"[reference] smoke f32 {'chunked' if chunked else 'bucketed'} engine, card vs "
+        f"CPU: tokens identical {same}, "
         f"max |score diff| {dscore:.2e}")
     if not (same and len(outs["cuda"]) == 6 and dscore < 1e-4):
         raise AssertionError("the engine on the card disagrees with the CPU reference")
 
 
-def main_path(dev, model, params, counters) -> dict:
+def main_requests(vocab):
+    """Phase 5's 16 requests: prompts of 64 .. 512 tokens, 32 .. 128 new."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(SEED)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(rng.integers(64, 513))),
+                    max_new_tokens=int(rng.integers(32, 129))) for i in range(16)]
+
+
+def main_path(dev, model, params, counters) -> tuple[dict, dict]:
+    """Phase 5; returns (launches, {rid: tokens})."""
     import numpy as np
     import torch
-    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    from repro_torch.serving import ServeConfig, ServingEngine
 
     cfg = model.cfg
     eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024), device=dev)
-    rng = np.random.default_rng(SEED)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(64, 513))),
-                    max_new_tokens=int(rng.integers(32, 129))) for i in range(16)]
+    reqs = main_requests(cfg.vocab)
     for r in reqs:
         eng.submit(r)
     for c in counters:
@@ -317,7 +511,82 @@ def main_path(dev, model, params, counters) -> dict:
     if not ok:
         raise AssertionError("main path failed: incomplete requests, bad outputs, a "
                              "page leak, or a kernel that never launched")
+    return launches, {r.rid: r.output for r in reqs}
+
+
+def bucketed_path(dev, model, params, counters, chunked_tokens) -> dict:
+    """Phase 5b: phase 5's requests on the bucketed-prefill path.  At bf16 a
+    near-tie argmax may differ between the two paths' summation orders, so
+    the share of requests with phase 5's tokens is printed, not gated."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = model.cfg
+    eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024,
+                                                   chunked_prefill=False), device=dev)
+    reqs = main_requests(cfg.vocab)
+    for r in reqs:
+        eng.submit(r)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    eng.kv.check_invariants()
+    emitted = sum(len(r.output) for r in reqs)
+    same = sum(r.output == chunked_tokens[r.rid] for r in reqs)
+    ok = (len(eng.completed) == len(reqs)
+          and all(len(r.output) == r.max_new_tokens for r in reqs)
+          and all(0 <= t < cfg.vocab for r in reqs for t in r.output)
+          and all(np.isfinite(r.score) and r.score <= 0.0 for r in reqs)
+          and eng.kv.n_free == eng.kv.num_pages - 1
+          and all(v > 0 for v in launches.values()))
+    log(f"[bucketed] {cfg.name} bf16, chunked_prefill=False: {len(eng.completed)}/{len(reqs)} "
+        f"requests, {emitted} emitted tokens in {wall:.3f} s ({emitted / wall:.1f} emitted "
+        f"tok/s, {eng.step_count} engine steps of {1e3 * wall / eng.step_count:.2f} ms); "
+        f"prefill occupancy {eng.prefill_occupancy:.3f}, by bucket "
+        f"{json.dumps(eng.bucket_occupancy)}; launches {launches}")
+    log(f"[bucketed] {same}/{len(reqs)} requests emit phase 5's tokens exactly "
+        f"({100 * same / len(reqs):.1f}%, not gated: bf16 near-ties may differ)")
+    if not ok:
+        raise AssertionError("bucketed path failed: incomplete requests, bad outputs, a "
+                             "page leak, or a kernel that never launched")
     return launches
+
+
+def path_agreement_f32(dev) -> None:
+    """Both paths on smollm-135m at full width in float32 (seeded random
+    weights), 8 requests of 16 new tokens: the share of requests with equal
+    tokens.  At f32 the two paths' logits differ only by summation order,
+    so a low share here, unlike at bf16, would point at a fault."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype=torch.float32)
+    model = build_model(cfg, device=dev)
+    params = model.init_params(SEED)
+    outs = {}
+    for chunked in (True, False):
+        eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024,
+                                                       chunked_prefill=chunked), device=dev)
+        reqs = main_requests(cfg.vocab)[:8]
+        for r in reqs:
+            r.max_new_tokens = 16
+            eng.submit(r)
+        eng.run_until_drained()
+        outs[chunked] = {r.rid: r.output for r in reqs}
+    same = sum(outs[True][r] == outs[False][r] for r in outs[True])
+    first = sum(outs[True][r][0] == outs[False][r][0] for r in outs[True])
+    log(f"[bucketed] float32 check, chunked vs bucketed path on {cfg.name}: {same}/8 "
+        f"requests emit equal tokens, {first}/8 equal first tokens (printed, not gated)")
 
 
 def scaling_loop(dev, model, params, counters) -> None:
@@ -353,8 +622,8 @@ def scaling_loop(dev, model, params, counters) -> None:
         raise AssertionError("scaling loop did not complete every request on the kernels")
 
 
-def profile_window(dev, model, params) -> None:
-    """Device time by kernel over three engine steps of the main path: one
+def profile_window(dev, model, params, *, chunked: bool = True) -> None:
+    """Device time by kernel over three engine steps of one path: one
     engine runs them unprofiled for the wall time, a twin engine with the
     same requests runs them under torch.profiler for the device time."""
     import numpy as np
@@ -364,7 +633,8 @@ def profile_window(dev, model, params) -> None:
     from repro_torch.serving import Request, ServeConfig, ServingEngine
 
     def engine():
-        eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024), device=dev)
+        eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024,
+                                                       chunked_prefill=chunked), device=dev)
         rng = np.random.default_rng(SEED + 7)
         for i in range(8):
             eng.submit(Request(rid=i, prompt=rng.integers(0, model.cfg.vocab, 96),
@@ -386,15 +656,17 @@ def profile_window(dev, model, params) -> None:
         prof_wall_ms, _ = three_steps(twin)
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    tag = "[profile]" if chunked else "[profile bucketed]"
     if not rows:
-        log("[profile] the profiler reported no device time: not measured")
+        log(f"{tag} the profiler reported no device time: not measured")
         return
     busy_ms = sum(r[0] for r in rows)
-    log(f"[profile] 3 engine steps ({iters - 1} mixed iterations after warm-up): wall "
+    kind = "mixed iterations" if chunked else "decode steps"
+    log(f"{tag} 3 engine steps ({iters - 1} {kind} after warm-up): wall "
         f"{wall_ms:.2f} ms unprofiled ({prof_wall_ms:.2f} ms profiled); device busy "
         f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% of the unprofiled wall")
     for dev_ms, count, key in sorted(rows, reverse=True)[:12]:
-        log(f"[profile]   {dev_ms:9.3f} ms {100 * dev_ms / busy_ms:5.1f}%  x{count:<6d} {key[:80]}")
+        log(f"{tag}   {dev_ms:9.3f} ms {100 * dev_ms / busy_ms:5.1f}%  x{count:<6d} {key[:80]}")
 
 
 def main() -> int:
@@ -404,8 +676,10 @@ def main() -> int:
         return 1
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.decode_attention.ops import decode_attention_mixed
-    from repro_torch.kernels.sampling.ops import fused_lmhead_greedy
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_mixed, decode_attention_paged)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_dyn
+    from repro_torch.kernels.sampling.ops import fused_lmhead_greedy, greedy_epilogue
     from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -428,20 +702,30 @@ def main() -> int:
 
     scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
     flush = scratch.zero_
-    records = [check_attention(dev, flush), check_lmhead(dev, flush)]
+    records = [check_attention(dev, flush), check_lmhead(dev, flush),
+               check_paged_decode(dev, flush), check_greedy(dev, flush),
+               check_flash(dev, flush)]
     del scratch
     small_reference(dev)
+    small_reference(dev, chunked=False)
 
     counters = (decode_attention_mixed, fused_lmhead_greedy)
+    bucketed_counters = (flash_attention_dyn, decode_attention_paged, greedy_epilogue)
     cfg = get_config("smollm-135m")
     model = build_model(cfg)                                   # on the GPU
     params = model.init_params(SEED)
-    launches = main_path(dev, model, params, counters)
+    launches, chunked_tokens = main_path(dev, model, params, counters)
+    launches.update(bucketed_path(dev, model, params, bucketed_counters, chunked_tokens))
+    path_agreement_f32(dev)
     scaling_loop(dev, model, params, counters)
     profile_window(dev, model, params)
+    profile_window(dev, model, params, chunked=False)
 
     by_kernel = {"paged_mixed_attention": launches["decode_attention_mixed"],
-                 "lmhead_greedy": launches["fused_lmhead_greedy"]}
+                 "lmhead_greedy": launches["fused_lmhead_greedy"],
+                 "paged_decode_attention": launches["decode_attention_paged"],
+                 "greedy_epilogue": launches["greedy_epilogue"],
+                 "flash_attention": launches["flash_attention_dyn"]}
     for rec in records:
         rec["launches"] = by_kernel[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -148,7 +148,8 @@ class ServeBackend:
             decisions=ctrl.decision_log,
             sla=self.sla,
             classes=classes,
-            extra={"evictions": self.evictions, "engine_steps": eng.step_count},
+            extra={"evictions": self.evictions, "engine_steps": eng.step_count,
+                   "prefill_occupancy": eng.prefill_occupancy},
             **ctrl.plan.report_kwargs(),
         )
 
@@ -181,7 +182,8 @@ def serve(args) -> int:
     params = model.init_params(args.seed)
     serve_cfg = ServeConfig(max_batch=args.batch, max_len=args.max_len,
                             page_size=args.page_size,
-                            decode_steps=args.decode_steps)
+                            decode_steps=args.decode_steps,
+                            chunked_prefill=not args.bucketed)
 
     stream = request_stream(n_requests=args.requests, seed=args.seed,
                             mean_prompt=args.mean_prompt,
@@ -219,7 +221,8 @@ def serve(args) -> int:
           f"SLA({args.sla}s) violations {100 * rep.violation_rate:.2f}%; "
           f"slots peak {rep.max_units}/{args.batch}; "
           f"stragglers evicted {backend.evictions} "
-          f"(page size {eng.kv.page_size})")
+          f"(page size {eng.kv.page_size}, "
+          f"prefill occupancy {eng.prefill_occupancy:.2f})")
     return 0
 
 
@@ -243,6 +246,10 @@ def main(argv=None):
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="tokens each slot advances per virtual second (one "
                          "K-step device loop per engine step)")
+    ap.add_argument("--bucketed", action="store_true",
+                    help="batched bucketed prefill + K-step decode "
+                         "(ServeConfig(chunked_prefill=False)) instead of the "
+                         "mixed chunked-prefill / speculative step")
     ap.add_argument("--convergence", action="store_true",
                     help="drive slot capacity through the convergence control "
                          "plane (desired-state reconciliation) instead of "

@@ -7,21 +7,31 @@ with the JAX tree's names: ``embed`` (V, d), ``ln_f``, optional ``lm_head``
 ``bv``, ``mlp``: ``w_gate``, ``w_up``, ``w_down``).  The JAX ``lax.scan``
 over stacked layers becomes a Python loop over that list.
 
-:func:`verify_step` is the serving path: on a CUDA device each layer's
-attention runs the paged mixed-attention kernel and the lm head runs the
-fused lm-head kernel; on the CPU both wrappers run their plain versions.
+:func:`verify_step` is the chunked serving path: on a CUDA device each
+layer's attention runs the paged mixed-attention kernel and the lm head runs
+the fused lm-head kernel.  :func:`prefill` and :func:`decode_step` are the
+bucketed path: prefill attention runs the flash-attention kernel, decode
+attention the paged decode kernel, and the full-vocab head product stays a
+plain matmul (the JAX package leaves it to XLA).  On the CPU every wrapper
+runs its plain version.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention.ops import decode_attention_mixed
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention_mixed, decode_attention_paged,
+)
+from repro_torch.kernels.flash_attention.ops import flash_attention_dyn
 from repro_torch.kernels.sampling.ops import fused_lmhead_greedy
-from repro_torch.models.attention import attention_mask, sdpa
+from repro_torch.models.attention import NEG_INF
 from repro_torch.models.common import (
     ModelConfig, apply_rope, gated_mlp, init_dense, rms_norm, rope_tables,
 )
 from repro_torch.serving import kvcache
+
+STREAM_THRESHOLD = 4096
+STREAM_CHUNK = 512
 
 
 # ---------------------------------------------------------------------------------
@@ -118,20 +128,80 @@ def _kv_dequantize(q, scale, dtype):
     return (q.float() * scale).to(dtype)
 
 
+def _stream_attention(q, k, v, window: int):
+    """Blockwise causal attention over query chunks of ``STREAM_CHUNK``,
+    O(S * chunk) memory: q (B, S, Hq, D) with S a multiple of the chunk;
+    ``window``: -1 = unlimited."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    group = Hq // Hkv
+    kf = k.float()
+    vf = v.float()
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for i in range(S // STREAM_CHUNK):
+        qi = q[:, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK]
+        qf = (qi.float() * (D ** -0.5)).reshape(B, STREAM_CHUNK, Hkv, group, D)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
+        q_pos = i * STREAM_CHUNK + torch.arange(STREAM_CHUNK, device=q.device)
+        m = k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            m &= k_pos[None, :] > q_pos[:, None] - window
+        logits = torch.where(m[None, None, None], logits, torch.full_like(logits, NEG_INF))
+        w = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", w, vf)
+        outs.append(out.reshape(B, STREAM_CHUNK, Hq, D).to(qi.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def _prefill_attention(q, k, v, window: int):
+    """Causal (+ window) attention over a full sequence: the flash kernel on
+    the card; on the CPU its plain version, or the streaming route above
+    ``STREAM_THRESHOLD`` as in the JAX package."""
     S = q.shape[1]
-    mask = attention_mask(S, S, causal=True, window=window if window > 0 else None,
-                          device=q.device)
-    return sdpa(q, k, v, mask)
+    if not q.is_cuda and S > STREAM_THRESHOLD and S % STREAM_CHUNK == 0:
+        return _stream_attention(q, k, v, window)
+    return flash_attention_dyn(q, k, v, window)
 
 
 def block_forward(x, bp, window: int, cos, sin, cfg: ModelConfig):
-    """Full-sequence block: x (B, S, d)."""
+    """Full-sequence block: x (B, S, d) -> (x, (k, v)), k/v after RoPE."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(h, bp, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = _prefill_attention(q, k, v, window)
+    x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
+    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + _ffn(h, bp, cfg), (k, v)
+
+
+def block_decode(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
+                 cfg: ModelConfig, cache_ks=None, cache_vs=None, *, block_table):
+    """One-token decode over a paged cache: x (B, 1, d), row b's token at
+    logical position ``pos[b]``.
+
+    The token's KV is written into the row's page first (in place), then
+    the query attends keys ``[0, pos]`` of its row through
+    :func:`decode_attention_paged` (the CUDA kernel on the card, gather +
+    vector mask + sdpa on the CPU).  ``cache_ks/vs``: int8 scale pools."""
+    int8_kv = cache_ks is not None
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(h, bp, cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    ops = kvcache.PagedOps(block_table)
+    if int8_kv:
+        k_store, k_sc = _kv_quantize(k)
+        v_store, v_sc = _kv_quantize(v)
+        ops.write(cache_ks, k_sc, pos)
+        ops.write(cache_vs, v_sc, pos)
+    else:
+        k_store, v_store = k, v
+    ops.write(cache_k, k_store, pos)
+    ops.write(cache_v, v_store, pos)
+    o = decode_attention_paged(q, cache_k, cache_v, block_table, pos + 1,
+                               window=window, k_scale=cache_ks, v_scale=cache_vs)
     x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     return x + _ffn(h, bp, cfg)
@@ -176,25 +246,86 @@ def _lm_head_weight(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def forward(params, batch, cfg: ModelConfig):
-    """Full-sequence forward -> (logits (B, S, V) f32, aux 0.0).
+def _lm_head(params, h, cfg: ModelConfig):
+    """Full-vocab logits in f32 (a plain matmul, as XLA runs it in JAX)."""
+    return (h @ _lm_head_weight(params, cfg)).float()
 
-    The greedy oracle of the tests.  Its attention is the plain version of
-    the flash-attention kernel, which is not ported yet, so it refuses to
-    run on a CUDA device rather than stand in for that kernel there."""
-    tokens = batch["tokens"]
-    if tokens.is_cuda:
-        raise NotImplementedError(
-            "forward needs the flash-attention kernel on CUDA, which is not "
-            "ported yet (ROADMAP.md Queue 2)")
+
+def _run_blocks(params, tokens, cfg: ModelConfig):
+    """Embed and run every block over full sequences -> (x after ln_f,
+    per-layer [(k, v)])."""
     x = params["embed"][tokens.long()]
     S = x.shape[1]
     cos, sin = rope_tables(torch.arange(S, device=x.device),
                            cfg.resolved_head_dim, cfg.rope_theta)
+    kvs = []
     for bp, w in zip(params["blocks"], layer_windows(cfg)):
-        x = block_forward(x, bp, w, cos, sin, cfg)
+        x, kv = block_forward(x, bp, w, cos, sin, cfg)
+        kvs.append(kv)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), kvs
+
+
+def forward(params, batch, cfg: ModelConfig):
+    """Full-sequence forward -> (logits (B, S, V) f32, aux 0.0).  The greedy
+    oracle of the tests; on the card its attention is the flash kernel."""
+    x, _ = _run_blocks(params, batch["tokens"], cfg)
+    return _lm_head(params, x, cfg), 0.0
+
+
+def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
+            last_idx=None):
+    """Run the prompt -> (last-position logits (B, 1, V) f32, cache dict of
+    (L, B, max_len, Hkv, hd) leaves).
+
+    ``last_idx``: position of each row's true last prompt token, an int or
+    a 0-d tensor (one for all rows) or a (B,) tensor (batched bucketed
+    prefill: rows padded to one power-of-two length, each selecting its own
+    last position; the causal mask keeps positions <= last_idx independent
+    of the padding).  None takes the last position.  The cache is padded to
+    ``max_len``; an int8 cache is quantized after attention, which runs on
+    the unquantized K/V."""
+    tokens = batch["tokens"]
+    x, kvs = _run_blocks(params, tokens, cfg)
+    B, S = tokens.shape
+    max_len = max_len or S
+    if last_idx is None:
+        x_last = x[:, -1:]
+    elif not torch.is_tensor(last_idx) or last_idx.dim() == 0:
+        i = int(last_idx)
+        x_last = x[:, i:i + 1]
+    else:
+        x_last = x[torch.arange(B, device=x.device), last_idx.long()][:, None]
+    logits = _lm_head(params, x_last, cfg)
+    ks = torch.stack([k for k, _ in kvs])                    # (L, B, S, Hkv, hd)
+    vs = torch.stack([v for _, v in kvs])
+    if max_len > S:
+        pad = (0, 0, 0, 0, 0, max_len - S)
+        ks = torch.nn.functional.pad(ks, pad)
+        vs = torch.nn.functional.pad(vs, pad)
+    if cfg.kv_cache_dtype == "int8":
+        kq, ksc = _kv_quantize(ks)
+        vq, vsc = _kv_quantize(vs)
+        return logits, {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+    return logits, {"k": ks.to(cfg.dtype), "v": vs.to(cfg.dtype)}
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig, *, block_table):
+    """One token per row over a paged cache (leaves (L, P, ps, ...)):
+    token (B, 1) at logical positions ``pos`` (B,), rows' pages in
+    ``block_table`` (B, n).  Returns ``(logits (B, 1, V) f32, cache)``; the
+    token's KV is written into the pages in place and the same dictionary
+    is returned."""
+    x = params["embed"][token.long()]
+    cos, sin = rope_tables(pos.long()[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    int8_kv = cfg.kv_cache_dtype == "int8"
+    for layer, (bp, w) in enumerate(zip(params["blocks"], layer_windows(cfg))):
+        x = block_decode(x, bp, w, cache["k"][layer], cache["v"][layer], pos,
+                         cos, sin, cfg,
+                         cache_ks=cache["k_scale"][layer] if int8_kv else None,
+                         cache_vs=cache["v_scale"][layer] if int8_kv else None,
+                         block_table=block_table)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return (x @ _lm_head_weight(params, cfg)).float(), 0.0
+    return _lm_head(params, x, cfg), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> dict:
@@ -240,5 +371,6 @@ def verify_step(params, cache, tokens, pos, cfg: ModelConfig, *, block_table):
     return tok, lp, cache
 
 
-__all__ = ["init_params", "init_cache", "forward", "verify_step",
-           "layer_windows", "block_forward", "block_verify"]
+__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step",
+           "verify_step", "layer_windows", "block_forward", "block_decode",
+           "block_verify"]

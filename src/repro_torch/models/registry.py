@@ -36,11 +36,16 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init_params: Callable          # seed -> params on ``device``
-    forward: Callable              # (params, batch) -> (logits, aux); CPU only
+    forward: Callable              # (params, batch) -> (logits, aux)
+    # (params, batch, max_len, last_idx=) -> (logits (B,1,V), cache)
+    prefill: Callable
+    # (params, cache, token (B,1), pos (B,), block_table=) -> (logits, cache)
+    decode_step: Callable
     init_cache: Callable           # (batch, max_len) -> cache on ``device``
     # (params, cache, tokens (B,T), pos (B,), block_table=) ->
     # (tok (B,T), lp (B,T), cache): span scoring through the fused lm-head
     verify_step: Callable
+    supports_paged: bool = True    # decode_step takes block_table= (paged KV)
 
 
 def build_model(cfg: ModelConfig, *, device=None) -> Model:
@@ -55,6 +60,8 @@ def build_model(cfg: ModelConfig, *, device=None) -> Model:
         device=dev,
         init_params=partial(lm.init_params, cfg=cfg, device=dev),
         forward=partial(lm.forward, cfg=cfg),
+        prefill=partial(lm.prefill, cfg=cfg),
+        decode_step=partial(lm.decode_step, cfg=cfg),
         init_cache=partial(lm.init_cache, cfg, device=dev),
         verify_step=partial(lm.verify_step, cfg=cfg),
     )

@@ -1,21 +1,30 @@
-"""Single-replica serving engine, mixed chunked-prefill / speculative path.
+"""Single-replica serving engine over the paged KV pool: the mixed
+chunked-prefill / speculative path and the bucketed-prefill path.
 
-Counterpart of ``repro.serving.engine`` (see its docstring).  Requests are
-admitted with no prefill dispatch: every engine step runs the mixed loop
-over the fixed ``max_batch``-wide slot array, in which each row either
-streams its next span-sized prompt chunk or verifies a drafted token block
-(n-gram proposer + longest-agreeing-prefix acceptance).  ``Request.score``
-is the application-output signal: the running mean log-probability of the
-tokens the model generated, which the serve driver feeds to the control
-plane's ``output_score`` channel.
+Counterpart of ``repro.serving.engine`` (see its docstring).
+``Request.score`` is the application-output signal: the running mean
+log-probability of the tokens the model generated, which the serve driver
+feeds to the control plane's ``output_score`` channel.
 
-The JAX ``lax.while_loop`` is a Python loop here, with one host sync per
-iteration (``live.any()``) so the loop exits as early as the reference's.
-Per-row state stays on the device between iterations.
+* **Mixed step** (``chunked_prefill=True``, the default): requests are
+  admitted with no prefill dispatch; every engine step runs the mixed loop
+  over the fixed ``max_batch``-wide slot array, in which each row either
+  streams its next span-sized prompt chunk or verifies a drafted token block
+  (n-gram proposer + longest-agreeing-prefix acceptance).
+* **Bucketed prefill** (``chunked_prefill=False``): queued prompts sharing a
+  power-of-two bucket are coalesced into one fixed-width ``prefill`` call
+  (padding rows and bucket overhang scatter into the trash page; a partial
+  group waits at most ``bucket_max_wait`` engine steps for bucket-mates),
+  then a K-step greedy decode loop advances the active slots, compacted and
+  padded to a power-of-two batch.
 
-Not ported yet (ROADMAP.md Queue 1): the bucketed prefill path
-(``chunked_prefill=False``), the dense-cache fallback (``paged=False``) and
-request migration (``export_request`` / ``import_request``).
+The JAX ``lax.while_loop`` of each path is a Python loop here, with one host
+sync per iteration (``live.any()``) so the loop exits as early as the
+reference's and ``step_count`` stays equal to it.  Per-row state stays on
+the device between iterations.
+
+Not ported yet (ROADMAP.md Queue 1): the dense-cache fallback
+(``paged=False``).
 """
 from __future__ import annotations
 
@@ -26,8 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.decode_attention import autotune
+from repro_torch.kernels.sampling.ops import greedy_epilogue
 from repro_torch.models.registry import Model, resolve_device
-from repro_torch.serving.kvcache import PagedKVCache
+from repro_torch.serving.kvcache import TRASH_PAGE, PagedKVCache, write_prefill_pages
 from repro_torch.serving.speculate import make_proposer, prefix_len
 
 
@@ -55,6 +65,18 @@ class Request:
 
 
 @dataclass(frozen=True)
+class MigratedRequest:
+    """One in-flight request lifted off a draining replica: the request, its
+    decode progress, and its committed KV pages as host tensors (None when
+    nothing is committed yet -- the importer replays the prompt)."""
+
+    req: Request
+    pos: int                           # committed KV positions on the source
+    remaining: int                     # decode budget left (NOT max_new_tokens)
+    kv_chunks: object                  # {name: (L, h, ps, *rest)} or None
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     max_batch: int = 8
     max_len: int = 1024
@@ -62,22 +84,28 @@ class ServeConfig:
     paged: bool = True                 # only the paged cache is ported
     page_size: int | None = None       # None: per-device default (autotune)
     num_pages: int | None = None       # default: max_batch*(max_len/ps) + trash
-    decode_steps: int = 8              # mixed-loop iterations per host round trip
-    chunked_prefill: bool = True       # only the chunked path is ported
+    decode_steps: int = 8              # loop iterations per host round trip
+    prefill_batch: int | None = None   # coalesced prefill width (None: max_batch)
+    # -- mixed chunked-prefill / speculative decode --
+    chunked_prefill: bool = True       # fold prefill chunks into the decode loop
     chunk_size: int | None = None      # prefill tokens per mixed step (None: autotune)
     draft_len: int | None = None       # speculative tokens per step (None: autotune;
                                        # 0 disables speculation)
     proposer: str = "ngram"            # draft proposer kind (speculate.make_proposer)
     ngram: int = 2                     # n-gram order for the lookup proposer
+    # -- bucketed-prefill path (chunked_prefill=False) --
+    bucket_max_wait: int = 4           # engine steps a partial bucket group may
+                                       # wait for bucket-mates before flushing
 
 
 class ServingEngine:
     """Synchronous continuous batcher (slot-based) on one device.
 
-    ``step()`` runs up to ``decode_steps`` mixed iterations over the active
-    slots; finished slots release their pages and are refilled from the
-    queue.  ``run_until_drained`` runs at the full ``cfg.decode_steps``
-    cadence.  ``device`` must match the model's (default: the GPU).
+    ``step()`` advances the active slots by up to ``decode_steps`` loop
+    iterations (mixed, or greedy decode on the bucketed path); finished
+    slots release their pages and are refilled from the queue.
+    ``run_until_drained`` runs at the full ``cfg.decode_steps`` cadence.
+    ``device`` must match the model's (default: the GPU).
     """
 
     def __init__(self, model: Model, params, cfg: ServeConfig, *, device=None):
@@ -85,10 +113,10 @@ class ServingEngine:
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} != model device "
                              f"{model.device}")
-        if not (cfg.paged and cfg.chunked_prefill):
+        if not (cfg.paged and model.supports_paged):
             raise NotImplementedError(
-                "only the paged chunked-prefill path is ported; the bucketed "
-                "and dense paths are ROADMAP.md Queue 1 items")
+                "only the paged KV cache is ported; the dense-cache fallback "
+                "(paged=False) is a ROADMAP.md Queue 1 item")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -102,20 +130,92 @@ class ServingEngine:
         self.completed: list[Request] = []
         self.step_count = 0
         self.decode_steps = max(int(cfg.decode_steps), 1)
+        self.prefill_batch = int(cfg.prefill_batch or cfg.max_batch)
+        self._prefill_rows = 0                     # real rows batched-prefilled
+        self._prefill_width = 0                    # padded rows dispatched
+        self._bucket_stats: dict[int, list] = {}   # bucket -> [rows, width]
+        self._bucket_first_wait: dict[int, int] = {}   # bucket -> first defer step
+        self._clock = 0                            # ticks every step() call
+        self.chunked = bool(cfg.chunked_prefill)
         dev = self.device.type
-        chunk = cfg.chunk_size or autotune.default_chunk_size(dev)
-        draft = (cfg.draft_len if cfg.draft_len is not None
-                 else autotune.default_draft_len(dev))
-        self.spec_len = max(int(draft), 0)
-        self.span = max(int(chunk), self.spec_len + 1, 1)
-        self.proposer = (make_proposer(cfg.proposer, self.span - 1, ngram=cfg.ngram)
-                         if self.span > 1 else None)
+        if self.chunked:
+            chunk = cfg.chunk_size or autotune.default_chunk_size(dev)
+            draft = (cfg.draft_len if cfg.draft_len is not None
+                     else autotune.default_draft_len(dev))
+            self.spec_len = max(int(draft), 0)
+            self.span = max(int(chunk), self.spec_len + 1, 1)
+            self.proposer = (make_proposer(cfg.proposer, self.span - 1, ngram=cfg.ngram)
+                             if self.span > 1 else None)
+        else:
+            self.spec_len = 0
+            self.span = 1
+            self.proposer = None
         self._mixed_emitted = 0                    # tokens emitted by mixed loop
         self._mixed_live_iters = 0                 # live-row loop iterations
         page_size = cfg.page_size or autotune.default_page_size(dev)
         self.kv = PagedKVCache(model.init_cache, max_batch=cfg.max_batch,
                                max_len=cfg.max_len, page_size=page_size,
                                num_pages=cfg.num_pages)
+
+    # -- the bucketed path: prefill and the K-step decode loop ------------------------
+
+    def _paged_prefill_fn(self, pages, toks, last_idx, page_ids):
+        """Batched bucketed prefill: toks (nb, pb) zero-padded rows sharing
+        one bucket pb (nb is the fixed ``prefill_batch`` width).  Scatters
+        each prompt's KV into its pages (bucket overhang and padding rows
+        land in the trash page) and returns each row's greedy first token
+        with its logprob."""
+        logits, cache = self.model.prefill(self.params, {"tokens": toks},
+                                           max_len=int(toks.shape[1]),
+                                           last_idx=last_idx)
+        tok, lp = greedy_epilogue(logits[:, 0])
+        write_prefill_pages(pages, cache, page_ids)
+        return tok, lp, pages
+
+    def _decode_loop(self, kv, toks, pos, rem, live, n_steps: int, step_fn):
+        """Up to ``n_steps`` greedy decode steps on the device.
+
+        Carried state: the KV pages (written in place), last tokens (na, 1),
+        per-row positions / remaining budgets, the live mask (rows park when
+        their budget runs out or they emit eos -- their KV writes keep
+        landing in pages they still own, or in the trash page, harmlessly),
+        the emitted-token buffer and running logprob sums.  The loop exits
+        early once every row parks."""
+        K = self.decode_steps
+        na = toks.shape[0]
+        dev = toks.device
+        eos = int(self.cfg.eos_token)
+        out_toks = torch.full((na, K), -1, dtype=torch.long, device=dev)
+        lp_sum = torch.zeros((na,), dtype=torch.float32, device=dev)
+        n_emit = torch.zeros((na,), dtype=torch.long, device=dev)
+        i = 0
+        # one host sync per iteration: the early exit keeps step_count equal
+        # to the reference's
+        while i < n_steps and bool(live.any()):
+            logits, kv = step_fn(kv, toks, pos)
+            tok, lp = greedy_epilogue(logits[:, 0])
+            tok = tok.long()
+            out_toks[:, i] = torch.where(live, tok, -1)
+            inc = live.long()
+            rem = rem - inc
+            lp_sum = lp_sum + torch.where(live, lp, 0.0)
+            toks = torch.where(live, tok, toks[:, 0])[:, None]
+            nxt_live = live & (rem > 0)
+            if eos >= 0:
+                nxt_live = nxt_live & (tok != eos)
+            pos = pos + inc
+            n_emit = n_emit + inc
+            live = nxt_live
+            i += 1
+        return kv, out_toks, lp_sum, n_emit, pos, rem, i
+
+    def _paged_decode_fn(self, pages, toks, pos, rem, live, tbl, n_steps: int):
+        """K-step decode loop for a compacted active-slot batch (padding
+        rows carry the trash-page table and write/attend harmlessly)."""
+        return self._decode_loop(
+            pages, toks, pos, rem, live, n_steps,
+            lambda kv, tk, ps: self.model.decode_step(self.params, kv, tk, ps,
+                                                      block_table=tbl))
 
     # -- the mixed step -------------------------------------------------------------
 
@@ -226,6 +326,18 @@ class ServingEngine:
         return len(self.queue) + len(self.active)
 
     @property
+    def prefill_occupancy(self) -> float:
+        """Real rows per dispatched prefill row (1.0 = no padding waste)."""
+        return self._prefill_rows / max(self._prefill_width, 1)
+
+    @property
+    def bucket_occupancy(self) -> dict[int, float]:
+        """Per-bucket prefill occupancy (bucketed path only; the chunked
+        path has no padded prefill rows to waste)."""
+        return {pb: rows / max(width, 1)
+                for pb, (rows, width) in sorted(self._bucket_stats.items())}
+
+    @property
     def speculation_stats(self) -> dict[str, float]:
         """Mixed-loop throughput counters: tokens emitted, live-row loop
         iterations, and their ratio (tokens per row-step; > 1 means
@@ -256,34 +368,194 @@ class ServingEngine:
         self.submit(req)
         return req
 
+    # -- migration (a fleet's drain path) ------------------------------------------
+    def export_request(self, slot: int) -> MigratedRequest:
+        """Lift the in-flight request off ``slot`` for migration: copy its
+        committed KV pages to the host, free the slot, and return everything
+        :meth:`import_request` needs to resume it elsewhere bit-identically.
+        Call only at a step boundary.  Chunked engines only -- the mixed loop
+        rebuilds history from prompt + output, so per-row state transfers
+        without a dense cache copy."""
+        if not self.chunked:
+            raise RuntimeError("migration requires the chunked paged engine")
+        req = self.active.pop(slot)
+        pos = int(self.pos[slot])
+        chunks = self.kv.export_slot(slot) if pos > 0 else None
+        m = MigratedRequest(req=req, pos=pos, remaining=int(self.remaining[slot]),
+                            kv_chunks=chunks)
+        self._reset_slot(slot)
+        return m
+
+    def can_import(self) -> bool:
+        """True if a migrated request could be admitted right now (free slot
+        under the cap; page admission is checked per request at import)."""
+        return len(self.active) < min(self.slot_limit, self.cfg.max_batch)
+
+    def import_request(self, m: MigratedRequest) -> int:
+        """Re-admit a migrated request with its committed KV installed.  The
+        decode budget resumes at the exported ``remaining``; the mixed loop
+        then continues from ``pos`` exactly as the source would have.
+        Returns the slot."""
+        if not self.chunked:
+            raise RuntimeError("migration requires the chunked paged engine")
+        if not self.can_import():
+            raise RuntimeError("no free slot under the cap for import")
+        total = len(m.req.prompt) + m.req.max_new_tokens - 1
+        if not self.kv.can_admit(total):
+            raise RuntimeError("page pool cannot admit the migrated request")
+        slot = next(s for s in range(self.cfg.max_batch) if s not in self.active)
+        if self.kv.held[slot] or self.kv.worst[slot]:
+            self._reset_slot(slot)       # reclaim a force-popped slot's pages
+        if m.pos > 0 and m.kv_chunks is not None:
+            self.kv.import_slot(slot, m.kv_chunks, total)
+        else:
+            self.kv.reserve(slot, total)
+        self.pos[slot] = m.pos
+        self.remaining[slot] = m.remaining
+        self.active[slot] = m.req
+        return slot
+
     # -- scheduling ---------------------------------------------------------------
-    def _fill_slots(self, now: float) -> None:
-        """Admit queued requests into free slots under the slot cap: reserve
-        their worst-case pages and hand the prompt to the mixed loop, which
-        streams it in span-sized chunks (no prefill dispatch)."""
+    def _note_prefilled(self, slot: int, req: Request, install: bool,
+                        tok: int, logp: float, now: float) -> int:
+        """Post-prefill bookkeeping: record the first token and its score;
+        either finish at fill time (the prefill token was the whole budget)
+        or install the request into its slot.  Returns 1 for a fill-time
+        completion, else 0."""
+        req.output.append(tok)
+        req.first_token_s = now
+        req.score += (logp - req.score) / len(req.output)
+        if not install:
+            # the prefill token is the whole budget: finish at fill time
+            # (a decode here would emit max_new_tokens + 1 tokens)
+            req.done_s = now
+            self.completed.append(req)
+            return 1
+        self.pos[slot] = len(req.prompt)
+        self.remaining[slot] = req.max_new_tokens - 1
+        self.active[slot] = req
+        return 0
+
+    def _prefill_group(self, group, pb: int, now: float) -> int:
+        """One batched bucketed prefill over ``group`` [(slot, req, install)]
+        rows sharing bucket ``pb``; returns the number of fill-time
+        completions (single-token budgets spent by the prefill argmax)."""
+        width = self.prefill_batch
+        n_chunks = pb // self.kv.page_size
+        toks = np.zeros((width, pb), np.int64)
+        last_idx = np.zeros((width,), np.int64)
+        page_ids = np.full((width, n_chunks), TRASH_PAGE, np.int32)
+        for j, (slot, req, install) in enumerate(group):
+            plen = len(req.prompt)
+            toks[j, :plen] = req.prompt
+            last_idx[j] = plen - 1
+            if install:
+                total = plen + req.max_new_tokens - 1
+                page_ids[j] = self.kv.alloc_prefill(slot, plen, total, n_chunks)
+        dev = self.device
+        tokv, lpv, self.kv.pages = self._paged_prefill_fn(
+            self.kv.pages, torch.from_numpy(toks).to(dev),
+            torch.from_numpy(last_idx).to(dev), torch.from_numpy(page_ids).to(dev))
+        tokv = tokv.cpu().numpy()
+        lpv = lpv.cpu().numpy()
+        self._prefill_rows += len(group)
+        self._prefill_width += width
+        stats = self._bucket_stats.setdefault(pb, [0, 0])
+        stats[0] += len(group)
+        stats[1] += width
+        fill_done = 0
+        for j, (slot, req, install) in enumerate(group):
+            fill_done += self._note_prefilled(slot, req, install,
+                                              int(tokv[j]), float(lpv[j]), now)
+        return fill_done
+
+    def _prefill_bucket(self, req: Request) -> int:
+        # bucket >= page_size so the padded prompt is a whole number of
+        # page chunks (both are powers of two; max_len is page-aligned)
+        return min(max(_bucket(len(req.prompt)), self.kv.page_size),
+                   self.cfg.max_len)
+
+    def _fill_slots(self, now: float) -> int:
+        """Refill free slots from the queue under the slot cap.  Returns the
+        number of requests that finished at fill time (a max_new_tokens
+        budget spent by the prefill token).
+
+        Chunked: reserve each request's worst-case pages and hand the prompt
+        to the mixed loop (no prefill dispatch).  Bucketed: coalesce
+        same-bucket head-of-queue prompts into batched prefill calls; a
+        fill-time completion still consumes its slot for this step, so the
+        slot cap bounds prefill work exactly like decode work."""
         limit = min(self.slot_limit, self.cfg.max_batch)
         free = [s for s in range(self.cfg.max_batch) if s not in self.active]
         # reclaim pages of slots that were force-popped without release()
         for s in free:
             if self.kv.held[s] or self.kv.worst[s]:
                 self._reset_slot(s)
-        while free and self.queue and len(self.active) < limit:
+        fill_done = 0
+        while free and self.queue and len(self.active) + fill_done < limit:
             req = self.queue[0]
             if req.max_new_tokens <= 0:
-                # nothing to generate: complete without a slot
+                # nothing to generate: complete without a prefill or a slot
                 self.queue.pop(0)
                 req.done_s = now
                 self.completed.append(req)
                 continue
-            total = len(req.prompt) + req.max_new_tokens - 1
-            if not self.kv.can_admit(total):
-                break                    # defer until completions free pages
-            self.queue.pop(0)
-            slot = free.pop(0)
-            self.kv.reserve(slot, total)
-            self.pos[slot] = 0
-            self.remaining[slot] = req.max_new_tokens
-            self.active[slot] = req
+            if self.chunked:
+                total = len(req.prompt) + req.max_new_tokens - 1
+                if not self.kv.can_admit(total):
+                    break                # defer until completions free pages
+                self.queue.pop(0)
+                slot = free.pop(0)
+                self.kv.reserve(slot, total)
+                self.pos[slot] = 0
+                self.remaining[slot] = req.max_new_tokens
+                self.active[slot] = req
+                continue
+            # bucketed: collect a same-bucket FIFO group for one batched prefill
+            pb = self._prefill_bucket(req)
+            group: list[tuple[int, Request, bool]] = []
+            planned = 0                  # worst-case pages promised to group
+            blocked = False
+            while (self.queue and free and len(group) < self.prefill_batch
+                   and len(self.active) + fill_done + len(group) < limit):
+                r = self.queue[0]
+                if r.max_new_tokens <= 0:
+                    self.queue.pop(0)
+                    r.done_s = now
+                    self.completed.append(r)
+                    continue
+                if self._prefill_bucket(r) != pb:
+                    break                # next bucket fills in the next group
+                install = r.max_new_tokens > 1
+                total = len(r.prompt) + r.max_new_tokens - 1
+                if install and not self.kv.can_admit(total, planned):
+                    blocked = True       # defer until completions free pages
+                    break
+                if install:
+                    planned += self.kv.pages_needed(total)
+                self.queue.pop(0)
+                group.append((free.pop(0), r, install))
+            if not group:
+                break                    # head of queue blocked on pages
+            full = (len(group) >= self.prefill_batch or not free
+                    or len(self.active) + fill_done + len(group) >= limit)
+            if (not full and not blocked and self.cfg.bucket_max_wait > 0
+                    and (self.active or fill_done)):
+                # partial group while the engine has other work: wait for
+                # bucket-mates to raise occupancy -- but never beyond
+                # ``bucket_max_wait`` engine steps, so a lone request in a
+                # cold bucket cannot starve behind a busy decode batch
+                first = self._bucket_first_wait.setdefault(pb, self._clock)
+                if self._clock - first < self.cfg.bucket_max_wait:
+                    for slot, r, _ in reversed(group):
+                        free.insert(0, slot)
+                        self.queue.insert(0, r)
+                    break
+            self._bucket_first_wait.pop(pb, None)
+            fill_done += self._prefill_group(group, pb, now)
+            if blocked:
+                break
+        return fill_done
 
     def _finish(self, slot: int, now: float) -> None:
         req = self.active.pop(slot)
@@ -373,11 +645,48 @@ class ServingEngine:
                 self.kv.shrink_to(s, max(int(self.pos[s]), 1))
         return n, int(iters)
 
+    def _decode_active_paged(self, now: float, k: int = 1) -> tuple[int, int]:
+        """Up to ``k`` batched greedy decode steps over the active slots
+        only, compacted and padded to a power-of-two batch (padding rows
+        carry the trash table), in one device loop.  Returns (slots served,
+        device steps executed)."""
+        slots = sorted(self.active)
+        n = len(slots)
+        if n == 0:
+            return 0, 0
+        na = 1 << max(int(np.ceil(np.log2(n))), 0)
+        toks = np.zeros((na, 1), np.int64)
+        posv = np.zeros((na,), np.int64)
+        remv = np.zeros((na,), np.int64)
+        livev = np.zeros((na,), bool)
+        tblv = np.zeros((na, self.kv.pages_per_slot), np.int32)
+        for i, s in enumerate(slots):
+            # pre-allocate every page the next k on-device writes may touch
+            span = min(k, int(self.remaining[s]))
+            self.kv.ensure_writable_span(s, int(self.pos[s]), max(span, 1))
+            toks[i, 0] = self.active[s].output[-1]
+            posv[i] = self.pos[s]
+            remv[i] = self.remaining[s]
+            livev[i] = True
+            tblv[i] = self.kv.block_table[s]
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(a).to(dev)
+
+        self.kv.pages, out_toks, lp_sum, n_emit, pos_out, rem_out, iters = \
+            self._paged_decode_fn(self.kv.pages, put(toks), put(posv), put(remv),
+                                  put(livev), put(tblv), k)
+        self._apply_decode_outputs(list(enumerate(slots)), out_toks, lp_sum,
+                                   n_emit, pos_out, rem_out, now)
+        return n, int(iters)
+
     def step(self, now: float | None = None, *,
              decode_steps: int | None = None) -> int:
         """One engine step: refill + one batched device loop over the active
         slots (``decode_steps`` iterations, default 1).  Returns the number
-        of slots that served work this step."""
+        of slots that served work this step (loop rows plus fill-time
+        completions)."""
         now = time.monotonic() if now is None else now
         k = max(int(decode_steps or 1), 1)
         if k > self.decode_steps:
@@ -386,12 +695,18 @@ class ServingEngine:
             raise ValueError(
                 f"decode_steps={k} > ServeConfig.decode_steps="
                 f"{self.decode_steps}; raise the config to burst this far")
-        self._fill_slots(now)
+        self._clock += 1
+        fill_done = self._fill_slots(now)
         if not self.active:
-            return 0
-        served, iters = self._decode_active_mixed(now, k)
+            if fill_done:
+                self.step_count += 1
+            return fill_done
+        if self.chunked:
+            served, iters = self._decode_active_mixed(now, k)
+        else:
+            served, iters = self._decode_active_paged(now, k)
         self.step_count += max(iters, 1)
-        return served
+        return served + fill_done
 
     def run_until_drained(self, max_steps: int = 10_000) -> None:
         """Drain queue + active set at the full ``cfg.decode_steps`` cadence."""
@@ -401,13 +716,5 @@ class ServingEngine:
             self.step(decode_steps=self.decode_steps)
         raise RuntimeError("engine failed to drain")
 
-    def export_request(self, slot: int):
-        raise NotImplementedError(
-            "request migration is not ported yet (ROADMAP.md Queue 1)")
 
-    def import_request(self, m):
-        raise NotImplementedError(
-            "request migration is not ported yet (ROADMAP.md Queue 1)")
-
-
-__all__ = ["Request", "ServeConfig", "ServingEngine"]
+__all__ = ["MigratedRequest", "Request", "ServeConfig", "ServingEngine"]

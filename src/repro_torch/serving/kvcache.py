@@ -1,4 +1,5 @@
-"""Paged KV cache: block-table storage + the cache ops the mixed step runs on.
+"""Paged KV cache: block-table storage + the cache ops both serving paths
+run on.
 
 Counterpart of ``repro.serving.kvcache`` (see its docstring for the pool's
 free-list discipline).  The serving engine's KV memory is a pool of
@@ -25,6 +26,27 @@ TRASH_PAGE = 0
 # ---------------------------------------------------------------------------------
 # device-side page ops
 # ---------------------------------------------------------------------------------
+
+def paged_update(cache: torch.Tensor, new: torch.Tensor,
+                 block_table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Scatter one new token per batch row into the page pool, in place.
+
+    cache: (P, ps, *rest), contiguous; new: (B, 1, *rest); block_table:
+    (B, n); pos: (B,) logical write positions.  Rows whose table entry is
+    the trash page write harmlessly into page 0.  A position past the table
+    (a parked full row) takes the last table entry, as the JAX gather's
+    index clamping does; such a row's KV is never read again.  Returns
+    ``cache``.
+    """
+    P, ps = cache.shape[0], cache.shape[1]
+    rest = cache.shape[2:]
+    B, n = block_table.shape
+    p = pos.long()
+    rows = torch.arange(B, device=p.device)
+    idx = block_table.long()[rows, (p // ps).clamp(max=n - 1)] * ps + p % ps   # (B,)
+    cache.view((P * ps,) + rest).index_copy_(0, idx, new[:, 0].to(cache.dtype))
+    return cache
+
 
 def paged_update_span(cache: torch.Tensor, new: torch.Tensor,
                       block_table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -68,6 +90,40 @@ def paged_gather(cache: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
     return flat[idx]
 
 
+def write_prefill_pages(pages: dict, cache: dict, page_ids: torch.Tensor) -> dict:
+    """Scatter a batched prefill cache into the pool, page-chunked, in place.
+
+    pages: {name: (L, P, ps, *rest)}; cache: matching {name: (L, B, pb,
+    *rest)} with pb a multiple of ps; page_ids: (B, pb // ps) (or
+    (pb // ps,) for B == 1) -- real pages first, trash (0) for the bucket
+    overhang past each prompt.  Real page ids are unique across rows
+    (free-list ownership).  Several rows may scatter their overhang into the
+    trash page; ``index_copy_`` then lets any one of the duplicate writes
+    win, which is harmless: every write to page 0 is garbage and page 0 is
+    never read as a row's KV.  Returns ``pages``.
+    """
+    ids = page_ids.reshape(-1).long()
+    for name, pg in pages.items():
+        c = cache[name]
+        L, ps = pg.shape[0], pg.shape[2]
+        rest = pg.shape[3:]
+        B, nc = c.shape[1], c.shape[2] // ps
+        chunks = c.reshape((L, B * nc, ps) + rest).to(pg.dtype)
+        pg.index_copy_(1, ids.to(pg.device), chunks)
+    return pages
+
+
+def _vector_mask(seq_len: int, pos: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, 1, S) validity mask for one query per row at logical ``pos[b]``:
+    keys k <= pos[b] (minus the sliding window, when ``window`` > 0).  The
+    T = 1 slice of :func:`_span_mask`."""
+    k_pos = torch.arange(seq_len, device=pos.device)
+    valid = k_pos[None, :] < pos.long()[:, None] + 1                   # (B, S)
+    if window > 0:
+        valid &= k_pos[None, :] > pos.long()[:, None] - window
+    return valid[:, None, :]
+
+
 def _span_mask(seq_len: int, pos: torch.Tensor, q_len: int,
                window: int) -> torch.Tensor:
     """(B, T, S) causal mask for a T-token span starting at per-row ``pos``:
@@ -88,11 +144,17 @@ class PagedOps:
 
     block_table: torch.Tensor                                          # (B, n)
 
+    def write(self, cache, new, pos):
+        return paged_update(cache, new, self.block_table, pos)
+
     def write_span(self, cache, new, pos):
         return paged_update_span(cache, new, self.block_table, pos)
 
     def view(self, cache):
         return paged_gather(cache, self.block_table)
+
+    def mask(self, seq_len, pos, window):
+        return _vector_mask(seq_len, pos, window)
 
     def span_mask(self, seq_len, pos, q_len, window):
         return _span_mask(seq_len, pos, q_len, window)
@@ -151,6 +213,24 @@ class PagedKVCache:
                 <= self.n_free - self._outstanding - planned)
 
     # -- lifecycle --------------------------------------------------------------
+    def alloc_prefill(self, slot: int, prompt_len: int, total_tokens: int,
+                      n_chunks: int) -> np.ndarray:
+        """Allocate the prompt's pages for ``slot`` and reserve its worst
+        case.  Returns the (n_chunks,) int32 page-id vector for the bucketed
+        prefill scatter -- real pages first, trash for the bucket overhang."""
+        n = self.pages_needed(prompt_len)
+        worst = max(self.pages_needed(total_tokens), n)
+        if n > self.n_free:
+            raise RuntimeError("page pool exhausted despite reservation")
+        ids = [self._free.pop() for _ in range(n)]
+        self.block_table[slot, :n] = ids
+        self.held[slot] = n
+        self.worst[slot] = worst
+        self._outstanding += worst - n
+        out = np.full(n_chunks, TRASH_PAGE, np.int32)
+        out[:n] = ids
+        return out
+
     def reserve(self, slot: int, total_tokens: int) -> None:
         """Register ``slot``'s worst-case page count without allocating yet
         (chunked admission: pages are appended by ensure_writable_span)."""
@@ -159,6 +239,11 @@ class PagedKVCache:
             raise RuntimeError(f"reservation past slot capacity at slot {slot}")
         self._outstanding += worst - int(self.worst[slot])
         self.worst[slot] = worst
+
+    def ensure_writable(self, slot: int, pos: int) -> None:
+        """Append a page if the next write at logical ``pos`` crosses into
+        an unallocated page (decode-time growth)."""
+        self.ensure_writable_span(slot, pos, 1)
 
     def ensure_writable_span(self, slot: int, pos: int, n: int) -> None:
         """Make logical positions [pos, pos + n) of ``slot`` writable,
@@ -204,6 +289,31 @@ class PagedKVCache:
         self.held[slot] = 0
         self.worst[slot] = 0
 
+    # -- migration (drain path; see engine.export_request) ----------------------
+    def export_slot(self, slot: int):
+        """Copy ``slot``'s held pages out of the pool to the host, in logical
+        order: {name: (L, h, ps, *rest)} CPU tensors with h = pages held.
+        Positions past the slot's committed count inside the last page are
+        garbage, as on the source after a ``shrink_to``; the importer
+        rewrites them before any mask lets them be read.  Returns None for a
+        slot with no pages yet."""
+        h = int(self.held[slot])
+        if h == 0:
+            return None
+        ids = torch.from_numpy(self.block_table[slot, :h].astype(np.int64))
+        return {name: pg[:, ids.to(pg.device)].cpu() for name, pg in self.pages.items()}
+
+    def import_slot(self, slot: int, chunks: dict, total_tokens: int) -> None:
+        """Install chunks from :meth:`export_slot` as ``slot``'s committed
+        KV: allocate exactly their page count, put the slot's worst-case
+        reservation (``total_tokens``) on the books, and scatter the pages
+        into the pool in logical order."""
+        h = next(iter(chunks.values())).shape[1]
+        ids = self.alloc_prefill(slot, h * self.page_size, total_tokens, h)
+        cache = {name: c.reshape((c.shape[0], 1, h * self.page_size) + tuple(c.shape[3:]))
+                 .to(self.pages[name].device) for name, c in chunks.items()}
+        write_prefill_pages(self.pages, cache, torch.from_numpy(ids))
+
     # -- invariants -------------------------------------------------------------
     def check_invariants(self) -> None:
         """Raise AssertionError if page ownership or accounting is broken."""
@@ -222,5 +332,5 @@ class PagedKVCache:
                 raise AssertionError(msg)
 
 
-__all__ = ["TRASH_PAGE", "paged_update_span", "paged_gather", "PagedOps",
-           "PagedKVCache"]
+__all__ = ["TRASH_PAGE", "paged_update", "paged_update_span", "paged_gather",
+           "write_prefill_pages", "PagedOps", "PagedKVCache"]

@@ -91,3 +91,24 @@ def lmhead_inputs(kind, N=6, d=32, V=999, seed=5):
     w = rng.integers(-1, 2, (d, V)).astype(np.float32)
     w[:, 997] = w[:, 3] = w[:, int(np.argmax(h[0] @ w))]
     return h, w
+
+
+def flash_inputs(group, *, B=2, S=32, Hkv=2, D=16, seed=2):
+    """q (B, S, Hq, D), k/v (B, S, Hkv, D) float32, the JAX layout."""
+    rng = np.random.default_rng(seed)
+    Hq = Hkv * group
+    return (rng.normal(size=(B, S, Hq, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+
+
+def logits_inputs(kind, B=5, V=999, seed=6):
+    """(B, V) float32 logits; "tie" forces exact maxima at 3, 500 and 997 in
+    row 0 (small integers are exact in f32), the first of which must win."""
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        return (rng.normal(size=(B, V)) * 3.0).astype(np.float32)
+    x = rng.integers(-4, 5, (B, V)).astype(np.float32)
+    x[0, 3] = x[0, 500] = x[0, 997] = 9.0
+    x[1, 998] = x[1, 0] = 9.0
+    return x

@@ -13,11 +13,17 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention_mixed, paged_mixed_attention_plain,
+    decode_attention_mixed, decode_attention_paged, paged_decode_attention_plain,
+    paged_mixed_attention_plain,
 )
-from repro_torch.kernels.sampling.ops import fused_lmhead_greedy, lmhead_greedy_plain
+from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
+from repro_torch.kernels.sampling.ops import (
+    fused_lmhead_greedy, greedy_epilogue, greedy_epilogue_plain, lmhead_greedy_plain,
+)
 
-from _torch_helpers import lmhead_inputs, mixed_inputs, require_cuda, tree_to
+from _torch_helpers import (
+    flash_inputs, lmhead_inputs, logits_inputs, mixed_inputs, require_cuda, tree_to,
+)
 
 
 # ---------------------------------------------------------------------------------
@@ -68,6 +74,126 @@ def test_lmhead_kernel_matches_plain(dtype, kind):
         clear = torch.ones_like(clear)       # integer logits: exact, ties included
     assert torch.equal(tok[clear], tok_p[clear])
     torch.testing.assert_close(lp, lp_p, atol=1e-3, rtol=0)
+
+
+def _tol(dtype):
+    return 1e-4 if dtype == "float32" else 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [-1, 5, 100])
+@pytest.mark.parametrize("group,S,D", [(1, 16, 16), (3, 100, 64), (2, 200, 128),
+                                       (2, 70, 256)])
+def test_flash_attention_kernel_matches_plain(dtype, window, group, S, D):
+    """Buckets smaller than the 64-row tile, ragged last tiles, every head
+    dim the kernel is built for; q/k/v read through strides (a transposed
+    view of (B, H, S, D))."""
+    dev = require_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dev, dt) for a in flash_inputs(group, S=S, D=D))
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)     # (B, S, H, D) strides of (B, H, S, D)
+    before = flash_attention_dyn.launches
+    out = flash_attention_dyn(qs, k, v, window)
+    torch.cuda.synchronize()
+    assert flash_attention_dyn.launches == before + 1
+    ref = flash_attention_plain(q, k, v, window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("window", [-1, 3])
+@pytest.mark.parametrize("ps", [4, 16])
+def test_paged_decode_kernel_matches_plain_and_mixed(dtype, window, ps):
+    """One query per row; at T = 1 the decode kernel equals the mixed kernel
+    with starts = lengths - 1."""
+    dev = require_cuda()
+    q, kp, vp, ks, vs, tbl, starts = mixed_inputs(3, dtype == "int8", D=64, ps=ps,
+                                                   n=8, T=1)
+    qdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    qt = torch.from_numpy(q).to(dev, qdt)
+    if dtype == "int8":
+        pages = [torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)]
+        sc = dict(k_scale=torch.from_numpy(ks).to(dev), v_scale=torch.from_numpy(vs).to(dev))
+    else:
+        pages = [torch.from_numpy(kp).to(dev, qdt), torch.from_numpy(vp).to(dev, qdt)]
+        sc = {}
+    tbl_t = torch.from_numpy(tbl).to(dev)
+    lengths = torch.from_numpy(starts).to(dev) + 1
+    before = decode_attention_paged.launches
+    out = decode_attention_paged(qt, *pages, tbl_t, lengths, window=window, **sc)
+    torch.cuda.synchronize()
+    assert decode_attention_paged.launches == before + 1
+    ref = paged_decode_attention_plain(qt, *pages, tbl_t, lengths, window=window, **sc)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype), rtol=_tol(dtype))
+    mixed = decode_attention_mixed(qt, *pages, tbl_t, lengths - 1, window=window, **sc)
+    torch.testing.assert_close(out.float(), mixed.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "tie"])
+@pytest.mark.parametrize("V", [999, 4099, 49152])
+def test_greedy_epilogue_kernel_matches_plain(kind, V):
+    dev = require_cuda()
+    x = torch.from_numpy(logits_inputs(kind, B=9, V=V)).to(dev)
+    before = greedy_epilogue.launches
+    tok, lp = greedy_epilogue(x[:, :])
+    torch.cuda.synchronize()
+    assert greedy_epilogue.launches == before + 1
+    tok_p, lp_p = greedy_epilogue_plain(x)
+    assert torch.equal(tok, tok_p)
+    torch.testing.assert_close(lp, lp_p, atol=1e-4, rtol=0)
+    if kind == "tie":
+        assert tok[0].item() == 3 and tok[1].item() == 0
+
+
+@pytest.mark.cuda
+def test_bucketed_engine_on_card_matches_cpu():
+    """chunked_prefill=False at float32: identical greedy tokens from the
+    flash, paged-decode and greedy-epilogue kernels on the card and the
+    plain versions on the CPU, every new kernel launched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    require_cuda()
+    cfg = dataclasses.replace(get_smoke_config("gemma3-4b"), dtype=torch.float32)
+    cpu_params = build_model(cfg, device="cpu").init_params(0)
+    counters = (flash_attention_dyn, decode_attention_paged, greedy_epilogue)
+    outs = {}
+    for where in ("cpu", "cuda"):
+        eng = ServingEngine(build_model(cfg, device=where), tree_to(cpu_params, where),
+                            ServeConfig(max_batch=4, max_len=64, page_size=8,
+                                        chunked_prefill=False), device=where)
+        rng = np.random.default_rng(1)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(4, 40))),
+                               max_new_tokens=int(rng.integers(1, 16))))
+        before = [c.launches for c in counters]
+        eng.run_until_drained()
+        eng.kv.check_invariants()
+        if where == "cuda":
+            assert all(c.launches > b for c, b in zip(counters, before))
+        outs[where] = {r.rid: (r.output, r.score) for r in eng.completed}
+    assert {r: o for r, (o, _) in outs["cuda"].items()} == \
+           {r: o for r, (o, _) in outs["cpu"].items()}
+    for rid, (_, score) in outs["cpu"].items():
+        assert abs(outs["cuda"][rid][1] - score) < 1e-4
+
+
+@pytest.mark.cuda
+def test_forward_on_card_matches_cpu():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    dev = require_cuda()
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"), dtype=torch.float32)
+    model = build_model(cfg, device="cpu")
+    params = model.init_params(0)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 37)))
+    ref, _ = model.forward(params, {"tokens": tokens})
+    out, _ = build_model(cfg, device=dev).forward(tree_to(params, dev),
+                                                  {"tokens": tokens.to(dev)})
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -7,18 +7,30 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.decode_attention.kernel import paged_decode_attention_fwd
 from repro.kernels.decode_attention.ops import decode_attention_mixed as jax_mixed
-from repro.kernels.sampling.kernel import lmhead_epilogue_fwd
-from repro.kernels.sampling.ref import lmhead_greedy_ref
+from repro.kernels.decode_attention.ref import (
+    paged_decode_attention_int8_ref, paged_decode_attention_ref,
+)
+from repro.kernels.flash_attention.kernel import flash_attention_fwd
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.kernels.sampling.kernel import greedy_epilogue_fwd, lmhead_epilogue_fwd
+from repro.kernels.sampling.ref import greedy_epilogue_ref, lmhead_greedy_ref
 from repro.models.attention import sdpa as jax_sdpa
 from repro.serving.kvcache import _span_mask as jax_span_mask
 from repro.serving.kvcache import paged_gather as jax_gather
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention_mixed, paged_mixed_attention_plain,
+    decode_attention_mixed, decode_attention_paged, paged_decode_attention_plain,
+    paged_mixed_attention_plain,
 )
-from repro_torch.kernels.sampling.ops import fused_lmhead_greedy, lmhead_greedy_plain
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_dyn, flash_attention_plain,
+)
+from repro_torch.kernels.sampling.ops import (
+    fused_lmhead_greedy, greedy_epilogue, greedy_epilogue_plain, lmhead_greedy_plain,
+)
 
-from _torch_helpers import lmhead_inputs, mixed_inputs
+from _torch_helpers import flash_inputs, lmhead_inputs, logits_inputs, mixed_inputs
 
 ATT_TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -72,3 +84,78 @@ def test_lmhead_plain_matches_jax(kind):
     tok_t, lp_t = fused_lmhead_greedy(torch.from_numpy(h).reshape(2, 3, -1), emb.T)
     assert tok_t.shape == (2, 3)
     assert torch.equal(tok_t.reshape(-1), tok) and torch.equal(lp_t.reshape(-1), lp)
+
+
+@pytest.mark.parametrize("window", [-1, 5])
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_flash_attention_plain_matches_jax(group, window):
+    """(B, S, H, D) plain version against the Pallas kernel (interpret mode,
+    two query and key tiles) and the attention_ref oracle, (B, H, S, D)."""
+    q, k, v = flash_inputs(group)
+    jq, jk, jv = (jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v))
+    ref_kernel = np.asarray(flash_attention_fwd(
+        jq, jk, jv, jnp.array([window], jnp.int32), block_q=16, block_k=16,
+        interpret=True)).transpose(0, 2, 1, 3)
+    ref = np.asarray(attention_ref(jq, jk, jv, window)).transpose(0, 2, 1, 3)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out = flash_attention_plain(tq, tk, tv, window)
+    np.testing.assert_allclose(out.numpy(), ref_kernel, **ATT_TOL)
+    np.testing.assert_allclose(out.numpy(), ref, **ATT_TOL)
+    # the wrappers take the plain version for CPU tensors, and only there
+    assert torch.equal(flash_attention_dyn(tq, tk, tv, window), out)
+    assert torch.equal(flash_attention(tq, tk, tv, window=window if window > 0 else None), out)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window", [-1, 3])
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_paged_decode_plain_matches_jax(group, window, int8):
+    """One query per row over the paged pool: the plain version against the
+    Pallas kernel (interpret mode) and the gather oracles; at T = 1 it is
+    the mixed plain version with starts = lengths - 1."""
+    q, kp, vp, ks, vs, tbl, starts = mixed_inputs(group, int8, T=1)
+    lengths = starts + 1
+    j = {k: (None if a is None else jnp.asarray(a))
+         for k, a in dict(q=q[:, 0], kp=kp, vp=vp, ks=ks, vs=vs, tbl=tbl,
+                          lens=lengths).items()}
+    ref_kernel = np.asarray(paged_decode_attention_fwd(
+        j["q"], j["kp"], j["vp"], j["tbl"], j["lens"], jnp.array([window], jnp.int32),
+        k_scale=j["ks"], v_scale=j["vs"], interpret=True))
+    if int8:
+        ref = paged_decode_attention_int8_ref(j["q"], j["kp"], j["vp"], j["ks"], j["vs"],
+                                              j["tbl"], j["lens"], window)
+    else:
+        ref = paged_decode_attention_ref(j["q"], j["kp"], j["vp"], j["tbl"], j["lens"],
+                                         window)
+    t = {k: (None if a is None else torch.from_numpy(a))
+         for k, a in dict(q=q, kp=kp, vp=vp, ks=ks, vs=vs, tbl=tbl, lens=lengths).items()}
+    args = (t["q"], t["kp"], t["vp"], t["tbl"], t["lens"])
+    sc = dict(k_scale=t["ks"], v_scale=t["vs"])
+    out = paged_decode_attention_plain(*args, window=window, **sc)
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.numpy()[:, 0], ref_kernel, **ATT_TOL)
+    np.testing.assert_allclose(out.numpy()[:, 0], np.asarray(ref), **ATT_TOL)
+    mixed = paged_mixed_attention_plain(t["q"], t["kp"], t["vp"], t["tbl"],
+                                        t["lens"] - 1, window=window, **sc)
+    np.testing.assert_allclose(out.numpy(), mixed.numpy(), **ATT_TOL)
+    assert torch.equal(decode_attention_paged(*args, window=window, **sc), out)
+
+
+@pytest.mark.parametrize("kind", ["normal", "tie"])
+def test_greedy_epilogue_plain_matches_jax(kind):
+    """Existing (B, V) logits with V % block_v != 0: the plain version
+    against the Pallas kernel (interpret mode) and the log_softmax oracle,
+    first maximal index on exact ties."""
+    x = logits_inputs(kind)
+    tok_ref, lp_ref = (np.asarray(a) for a in greedy_epilogue_ref(jnp.asarray(x)))
+    tok_k, lp_k = (np.asarray(a) for a in greedy_epilogue_fwd(
+        jnp.asarray(x), block_v=256, interpret=True))
+    tok, lp = greedy_epilogue_plain(torch.from_numpy(x))
+    assert tok.dtype == torch.int32 and lp.dtype == torch.float32
+    for t_ref, l_ref in ((tok_ref, lp_ref), (tok_k, lp_k)):
+        np.testing.assert_array_equal(tok.numpy(), t_ref)
+        np.testing.assert_allclose(lp.numpy(), l_ref, atol=1e-5)
+    if kind == "tie":
+        assert tok[0].item() == 3
+    wrapped = greedy_epilogue(torch.from_numpy(x))
+    assert torch.equal(wrapped[0], tok) and torch.equal(wrapped[1], lp)

@@ -131,14 +131,129 @@ def test_build_model_needs_gpu_or_explicit_cpu(monkeypatch):
     assert build_model(cfg, device="cpu").device == torch.device("cpu")
 
 
-def test_forward_refuses_cuda_tensors():
-    """forward is the CPU oracle: on the card it would stand in for the
-    flash-attention kernel, which is not ported."""
+def test_forward_refuses_cuda_tensors(monkeypatch):
+    """forward refused CUDA tensors until the flash-attention kernel was
+    ported; now it runs there, each layer's attention through the kernel's
+    wrapper.  A tensor that reports itself as CUDA takes that route here."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
     from repro_torch.models import lm
-    cfg = get_smoke_config("smollm-135m")
+    _, tc, _, _, tp = smoke_pair("gemma3-4b")
 
-    class FakeCuda:
-        is_cuda = True
+    class FakeCuda(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
 
-    with pytest.raises(NotImplementedError, match="flash-attention"):
-        lm.forward({}, {"tokens": FakeCuda()}, cfg)
+    calls = []
+
+    def flash(q, k, v, window):
+        calls.append((window, q.is_cuda))
+        return flash_attention_plain(q, k, v, window)
+
+    monkeypatch.setattr(lm, "flash_attention_dyn", flash)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, tc.vocab, (2, 11)))
+    ref, _ = lm.forward(tp, {"tokens": tokens}, tc)
+    calls.clear()
+    out, _ = lm.forward(tp, {"tokens": tokens.as_subclass(FakeCuda)}, tc)
+    assert calls == [(w, True) for w in lm.layer_windows(tc)]
+    torch.testing.assert_close(out.as_subclass(torch.Tensor), ref, atol=0, rtol=0)
+
+
+def _jax_prefill_inputs(tc, B=3, S=16, seed=8):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, tc.vocab, (B, S)).astype(np.int32)
+    last_idx = np.array([S - 1, 4, 9][:B], np.int32)
+    return tokens, last_idx
+
+
+def _assert_cache_close(tcache, jcache):
+    for key, jleaf in jcache.items():
+        t, j = tcache[key].numpy(), np.asarray(jleaf)
+        assert t.shape == j.shape, key
+        if t.dtype == np.int8:      # a rounding tie may land one step apart
+            assert np.abs(t.astype(np.int32) - j.astype(np.int32)).max() <= 1, key
+        else:
+            np.testing.assert_allclose(t, j, atol=2e-5, rtol=2e-5, err_msg=key)
+
+
+PARAMS3 = [("smollm-135m", "native"), ("gemma3-4b", "native"), ("qwen2.5-3b", "int8")]
+
+
+@pytest.mark.parametrize("arch,kv", PARAMS3)
+def test_forward_and_prefill_match_jax(arch, kv):
+    """forward logits; prefill with a per-row last_idx, a scalar one and
+    none, padded to max_len, int8-quantized after attention."""
+    from repro.models import lm as jax_lm
+    from repro_torch.models import lm
+    jc, tc, _, jp, tp = smoke_pair(arch, kv=kv)
+    tokens, last_idx = _jax_prefill_inputs(tc)
+    jt, tt = jnp.asarray(tokens), torch.from_numpy(tokens)
+    jl, _ = jax_lm.forward(jp, {"tokens": jt}, jc)
+    tl, _ = lm.forward(tp, {"tokens": tt}, tc)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-5, rtol=2e-5)
+    for li in (last_idx, 7, None):
+        jli = None if li is None else jnp.asarray(li)
+        tli = None if li is None else (torch.from_numpy(li) if isinstance(li, np.ndarray)
+                                       else li)
+        jlog, jcache = jax_lm.prefill(jp, {"tokens": jt}, jc, max_len=24, last_idx=jli)
+        tlog, tcache = lm.prefill(tp, {"tokens": tt}, tc, max_len=24, last_idx=tli)
+        assert tlog.shape == (3, 1, tc.vocab)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=2e-5, rtol=2e-5)
+        _assert_cache_close(tcache, jcache)
+
+
+@pytest.mark.parametrize("arch,kv", PARAMS3)
+def test_decode_step_paged_matches_jax(arch, kv):
+    """One token per row at heterogeneous positions over a paged pool: the
+    logits and every written page match the JAX gather route."""
+    from repro.models import lm as jax_lm
+    from repro_torch.models import lm
+    jc, tc, _, jp, tp = smoke_pair(arch, kv=kv)
+    rng = np.random.default_rng(9)
+    B, ps, n = 3, 4, 8
+    P = B * n + 1
+    L, Hkv, hd = jc.n_layers, jc.n_kv_heads, jc.resolved_head_dim
+    pos = np.array([0, 6, 27], np.int32)
+    perm = rng.permutation(np.arange(1, P)).astype(np.int32)
+    tbl = np.zeros((B, n), np.int32)
+    for b in range(B):
+        live = pos[b] // ps + 1
+        tbl[b, :live] = perm[b * n:b * n + live]
+    if kv == "int8":
+        cache = {"k": rng.integers(-127, 128, (L, P, ps, Hkv, hd)).astype(np.int8),
+                 "v": rng.integers(-127, 128, (L, P, ps, Hkv, hd)).astype(np.int8),
+                 "k_scale": rng.uniform(1e-3, 2e-2, (L, P, ps, Hkv, 1)).astype(np.float32),
+                 "v_scale": rng.uniform(1e-3, 2e-2, (L, P, ps, Hkv, 1)).astype(np.float32)}
+    else:
+        cache = {"k": rng.normal(size=(L, P, ps, Hkv, hd)).astype(np.float32),
+                 "v": rng.normal(size=(L, P, ps, Hkv, hd)).astype(np.float32)}
+    token = rng.integers(0, jc.vocab, (B, 1)).astype(np.int32)
+    jlog, jcache = jax_lm.decode_step(jp, {k: jnp.asarray(a) for k, a in cache.items()},
+                                      jnp.asarray(token), jnp.asarray(pos), jc,
+                                      block_table=jnp.asarray(tbl))
+    tcache = {k: torch.from_numpy(a.copy()) for k, a in cache.items()}
+    tlog, tcache = lm.decode_step(tp, tcache, torch.from_numpy(token), torch.from_numpy(pos),
+                                  tc, block_table=torch.from_numpy(tbl))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=2e-5, rtol=2e-5)
+    _assert_cache_close({k: v[:, 1:] for k, v in tcache.items()},
+                        {k: v[:, 1:] for k, v in jcache.items()})
+
+
+@pytest.mark.parametrize("window", [-1, 300])
+def test_stream_attention_matches_jax(window):
+    """The CPU route above STREAM_THRESHOLD, at S = 1024 with small heads:
+    two query chunks against the JAX scan and the port's plain version."""
+    from repro.models import lm as jax_lm
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.models import lm
+    rng = np.random.default_rng(10)
+    q = rng.normal(size=(1, 1024, 2, 8)).astype(np.float32)
+    k = rng.normal(size=(1, 1024, 1, 8)).astype(np.float32)
+    v = rng.normal(size=(1, 1024, 1, 8)).astype(np.float32)
+    ref = np.asarray(jax_lm._stream_attention(jnp.asarray(q), jnp.asarray(k),
+                                              jnp.asarray(v), jnp.int32(window)))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out = lm._stream_attention(tq, tk, tv, window)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out.numpy(), flash_attention_plain(tq, tk, tv, window).numpy(),
+                               atol=2e-5, rtol=2e-5)

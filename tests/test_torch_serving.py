@@ -88,6 +88,55 @@ def test_paged_kv_cache_invariants_catch_a_leak():
         tpool.check_invariants()
 
 
+def test_prefill_pages_and_slot_migration_match_jax():
+    """alloc_prefill + write_prefill_pages (one batched scatter, bucket
+    overhang into the trash page), then export_slot / import_slot, scripted
+    on both pools: block tables, free lists, reservations and page contents
+    equal (page 0 takes unordered garbage writes and is not compared)."""
+    rng = np.random.default_rng(13)
+    L, ps, pb = 2, 8, 32
+    shapes = {"k": (L, 4, 64, 2, 4), "v": (L, 4, 64, 2, 4)}
+    jpool = jkv.PagedKVCache(lambda b, s: {k: jnp.zeros((L, b, s, 2, 4)) for k in shapes},
+                             max_batch=4, max_len=64, page_size=ps)
+    tpool = tkv.PagedKVCache(lambda b, s: {k: torch.zeros((L, b, s, 2, 4)) for k in shapes},
+                             max_batch=4, max_len=64, page_size=ps)
+    cache = {k: rng.normal(size=(L, 3, pb, 2, 4)).astype(np.float32) for k in shapes}
+
+    def same():
+        np.testing.assert_array_equal(tpool.block_table, jpool.block_table)
+        np.testing.assert_array_equal(tpool.held, jpool.held)
+        np.testing.assert_array_equal(tpool.worst, jpool.worst)
+        assert tpool._free == jpool._free and tpool._outstanding == jpool._outstanding
+        for k in shapes:
+            np.testing.assert_array_equal(tpool.pages[k].numpy()[:, 1:],
+                                          np.asarray(jpool.pages[k])[:, 1:])
+        tpool.check_invariants()
+
+    for pool in (jpool, tpool):
+        pool.reserve(3, 10)
+        ids = np.stack([pool.alloc_prefill(0, 20, 40, pb // ps),
+                        pool.alloc_prefill(1, 9, 9, pb // ps),
+                        np.zeros(pb // ps, np.int32)])         # a padding row
+        if pool is jpool:
+            jpool.pages = jkv.write_prefill_pages(
+                jpool.pages, {k: jnp.asarray(c) for k, c in cache.items()}, jnp.asarray(ids))
+        else:
+            tkv.write_prefill_pages(tpool.pages, {k: torch.from_numpy(c) for k, c in
+                                                  cache.items()}, torch.from_numpy(ids))
+        pool.ensure_writable(0, 24)
+    same()
+    jchunks, tchunks = jpool.export_slot(0), tpool.export_slot(0)
+    assert jpool.export_slot(2) is None and tpool.export_slot(2) is None
+    for k in shapes:
+        assert tchunks[k].device.type == "cpu"
+        np.testing.assert_array_equal(tchunks[k].numpy(), np.asarray(jchunks[k]))
+    jpool.release(0)
+    tpool.release(0)
+    jpool.import_slot(2, jchunks, 50)
+    tpool.import_slot(2, tchunks, 50)
+    same()
+
+
 def test_paged_update_span_and_gather_match_jax():
     rng = np.random.default_rng(3)
     P, ps, B, T, n = 9, 4, 2, 5, 4
@@ -247,16 +296,108 @@ def test_engine_eos_stops_row():
 def test_engine_device_rule_and_unported_paths(monkeypatch):
     _, tc, _, _, tp = smoke_pair("smollm-135m")
     tm = build_model(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="chunked"):
-        ServingEngine(tm, tp, ServeConfig(chunked_prefill=False), device="cpu")
-    eng = ServingEngine(tm, tp, ServeConfig(max_len=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="migration"):
-        eng.export_request(0)
+    with pytest.raises(NotImplementedError, match="paged=False"):
+        ServingEngine(tm, tp, ServeConfig(paged=False), device="cpu")
+    bucketed = ServingEngine(tm, tp, ServeConfig(max_len=64, chunked_prefill=False),
+                             device="cpu")
+    with pytest.raises(RuntimeError, match="migration"):
+        bucketed.export_request(0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(tm, tp, ServeConfig(max_len=64))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_main(["--arch", "smollm-135m", "--smoke"])
+
+
+# ---------------------------------------------------------------------------------
+# the bucketed-prefill engine
+# ---------------------------------------------------------------------------------
+
+def _bucketed_requests(cls, vocab, seed=12, n=8):
+    """Prompts in the 16 and 32 buckets; one single-token budget (finished
+    at fill time by the prefill argmax)."""
+    rng = np.random.default_rng(seed)
+    reqs = [cls(rid=i, prompt=rng.integers(0, vocab, int(rng.integers(3, 30))).astype(np.int32),
+                max_new_tokens=int(rng.integers(2, 14))) for i in range(n)]
+    reqs[3].max_new_tokens = 1
+    return reqs
+
+
+@pytest.mark.parametrize("wait", [0, 4])
+@pytest.mark.parametrize("cadence", [1, 8])
+@pytest.mark.parametrize("arch,kv", [("smollm-135m", "native"), ("gemma3-4b", "native"),
+                                     ("qwen2.5-3b", "int8")])
+def test_bucketed_engine_matches_jax_engine(arch, kv, cadence, wait):
+    """chunked_prefill=False on the same requests and parameters: identical
+    outputs, step counts, block tables after every step, prefill and bucket
+    occupancy; scores within 1e-4; pages conserved after every step."""
+    jc, tc, jm, jp, tp = smoke_pair(arch, kv=kv)
+    kw = dict(max_batch=4, max_len=64, page_size=8, chunked_prefill=False,
+              bucket_max_wait=wait)
+    jeng = JaxEngine(jm, jp, JaxServeConfig(**kw))
+    tm = build_model(tc, device="cpu")
+    teng = ServingEngine(tm, tp, ServeConfig(**kw), device="cpu")
+    for r in _bucketed_requests(JaxRequest, jc.vocab):
+        jeng.submit(r)
+    treqs = _bucketed_requests(Request, tc.vocab)
+    for r in treqs:
+        teng.submit(r)
+    while jeng.queue or jeng.active:
+        jeng.step(now=0.0, decode_steps=cadence)
+        teng.step(now=0.0, decode_steps=cadence)
+        teng.kv.check_invariants()
+        assert sorted(teng.active) == sorted(jeng.active)
+        np.testing.assert_array_equal(teng.kv.block_table, jeng.kv.block_table)
+        assert teng.step_count == jeng.step_count
+    assert not teng.queue and not teng.active
+    assert teng.prefill_occupancy == jeng.prefill_occupancy
+    assert teng.bucket_occupancy == jeng.bucket_occupancy
+    jout = {r.rid: r for r in jeng.completed}
+    assert [r.rid for r in teng.completed] == [r.rid for r in jeng.completed]
+    for r in teng.completed:
+        assert r.output == jout[r.rid].output, r.rid
+        assert len(r.output) == r.max_new_tokens
+        assert abs(r.score - jout[r.rid].score) < 1e-4
+    assert teng.kv.n_free == teng.kv.num_pages - 1
+    if cadence == 1 and wait == 0:
+        for r in treqs[:3]:
+            assert r.output == _oracle(tm, tp, r.prompt, r.max_new_tokens), r.rid
+
+
+def test_migration_matches_undisturbed_run_and_jax():
+    """export_request mid-flight from one chunked engine, import_request into
+    another: the migrated request's tokens equal an undisturbed run's, and
+    both engines conserve pages; the JAX engines do the same."""
+    jc, tc, jm, jp, tp = smoke_pair("smollm-135m")
+    kw = dict(max_batch=4, max_len=64, page_size=8, chunk_size=8, draft_len=4)
+    tm = build_model(tc, device="cpu")
+    runs = {}
+    for name, make_eng, make_req in (
+            ("torch", lambda: ServingEngine(tm, tp, ServeConfig(**kw), device="cpu"), Request),
+            ("jax", lambda: JaxEngine(jm, jp, JaxServeConfig(**kw)), JaxRequest)):
+        ref = make_eng()
+        for r in _requests(make_req, tc.vocab, n=4):
+            ref.submit(r)
+        ref.run_until_drained()
+        src, dst = make_eng(), make_eng()
+        for r in _requests(make_req, tc.vocab, n=4):
+            src.submit(r)
+        src.step(now=0.0, decode_steps=1)
+        src.step(now=0.0, decode_steps=1)
+        slots = sorted(src.active)
+        moved = [src.export_request(s) for s in slots[:2]]
+        assert moved[0].pos > 0 and moved[0].kv_chunks is not None
+        for m in moved:
+            dst.import_request(m)
+        src.run_until_drained()
+        dst.run_until_drained()
+        for eng in (src, dst):
+            eng.kv.check_invariants()
+            assert eng.kv.n_free == eng.kv.num_pages - 1
+        got = {r.rid: r.output for r in src.completed + dst.completed}
+        assert got == {r.rid: r.output for r in ref.completed}
+        runs[name] = got
+    assert runs["torch"] == runs["jax"]
 
 
 # ---------------------------------------------------------------------------------
@@ -270,16 +411,13 @@ def _backend_requests(cls, stream, vocab, max_len):
             for i, (t, p, d) in enumerate(stream)]
 
 
-@pytest.mark.parametrize("policy", ["target", "appdata"])
-def test_serve_backend_matches_jax(policy):
-    """The paper's loop on the port: the same policy and requests give the
-    same completions, slot trajectory and decision log as the JAX stack."""
+def _backend_parity(policy, chunked):
     jc, tc, jm, jp, tp = smoke_pair("smollm-135m")
     skw = dict(n_requests=15, seed=0, mean_prompt=16, mean_decode=8,
                burst_times=(10.0,), horizon_s=20.0)
     stream = request_stream(**skw)
     assert stream == jax_request_stream(**skw)
-    kw = dict(max_batch=4, max_len=128, decode_steps=1)
+    kw = dict(max_batch=4, max_len=128, decode_steps=1, chunked_prefill=chunked)
     bkw = dict(sla_s=20.0, horizon_s=20.0, stall_steps=50.0, decode_steps=1)
     jeng = JaxEngine(jm, jp, JaxServeConfig(**kw))
     jrep = JaxServeBackend(jeng, _backend_requests(JaxRequest, stream, jc.vocab, 128),
@@ -294,7 +432,20 @@ def test_serve_backend_matches_jax(policy):
     np.testing.assert_array_equal(trep.latencies, jrep.latencies)
     assert [dataclasses.asdict(d) for d in trep.decisions] == \
            [dataclasses.asdict(d) for d in jrep.decisions]
-    assert trep.extra["engine_steps"] == jrep.extra["engine_steps"]
+    assert trep.extra == jrep.extra
+
+
+@pytest.mark.parametrize("policy", ["target", "appdata"])
+def test_serve_backend_matches_jax(policy):
+    """The paper's loop on the port: the same policy and requests give the
+    same completions, slot trajectory and decision log as the JAX stack."""
+    _backend_parity(policy, chunked=True)
+
+
+@pytest.mark.parametrize("policy", ["target", "appdata"])
+def test_bucketed_serve_backend_matches_jax(policy):
+    """The same loop over the bucketed-prefill engine."""
+    _backend_parity(policy, chunked=False)
 
 
 def test_serve_cli_runs_on_cpu(capsys):
@@ -303,3 +454,10 @@ def test_serve_cli_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert re.search(r"completed (\d+)/\1 requests", out) and "violations" in out
     assert serve_main(["--smoke", "--device", "cpu", "--policy", "load"]) == 2
+
+
+def test_serve_cli_bucketed_runs_on_cpu(capsys):
+    assert serve_main(["--arch", "gemma3-4b", "--smoke", "--device", "cpu", "--bucketed",
+                       "--requests", "6", "--horizon", "10", "--decode-steps", "2"]) == 0
+    out = capsys.readouterr().out
+    assert re.search(r"completed (\d+)/\1 requests", out) and "prefill occupancy" in out
