@@ -9,11 +9,15 @@ Phases, each of which fails the run if it fails:
 2. build every hand-written CUDA kernel from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
 3. hold each kernel against its plain PyTorch version at the serving
-   shapes of smollm-135m, and time the kernel, the plain version and a
-   PyTorch library yardstick beside the least time the card could take;
+   shapes of smollm-135m (the SSD intra-chunk kernel at mamba2-1.3b's
+   prefill shape, the dense decode-attention kernel at zamba2-2.7b's shared
+   attention), and time the kernel, the plain version and a PyTorch library
+   yardstick beside the least time the card could take;
 4. small end-to-end references: the smoke config at float32 served on the
    card (kernels) and on the CPU (plain versions) must emit identical
-   tokens, on the chunked path and on the bucketed-prefill path;
+   tokens, on the chunked path and on the bucketed-prefill path; likewise
+   mamba2-smoke through the dense-cache engine (tokens and step counts) and
+   zamba2-smoke at model level (prefill and four decode steps);
 5. the main path at full width: smollm-135m ``CONFIG`` in bf16 with seeded
    random weights, ``ServingEngine(max_batch=8, max_len=1024)`` draining 16
    requests; every request completes, pages are conserved, and both of its
@@ -24,9 +28,19 @@ Phases, each of which fails the run if it fails:
    kernels were launched (counters zeroed just before); it prints tokens/s,
    prefill occupancy and the share of requests whose tokens equal phase 5's,
    and the same share for both paths at float32;
+5c. the ssm path at full width: mamba2-1.3b ``CONFIG`` in bf16 with seeded
+   random weights through the engine's dense-cache fallback
+   (``ServeConfig(max_batch=8, max_len=1024)``), draining phase 5's 16
+   requests; every request completes, and the SSD intra-chunk kernel
+   launched once per layer per prefill (counters zeroed just before);
+5d. ``attention.mha_decode(use_kernel=True)``, the dense decode-attention
+   kernel's only entry point, over eight decode positions at zamba2-2.7b's
+   shared-attention shape, each step against the plain route;
 6. the paper's loop on that model: ``ServeBackend`` with the ``appdata``
-   policy over a seeded bursty request stream;
-7. short profiled windows of both paths (device time by kernel).
+   policy over a seeded bursty request stream; 6b. the same on the
+   mamba2-1.3b engine;
+7. short profiled windows of the three serving paths (device time by
+   kernel).
 
 The second-to-last line of stdout is the ``kernels`` JSON record, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -45,6 +59,7 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at the 700 W limit
 BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak, same source
+F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores, same source
 
 
 def log(msg: str) -> None:
@@ -72,9 +87,12 @@ def timed_ms(fn, *, reps: int = 20, flush=None) -> float:
     return total / reps
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float,
+             peak: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and flops over ``peak``, the
+    card's rate for the operations' type."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -417,6 +435,163 @@ def check_greedy(dev, flush) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
+def check_ssd_intra(dev, flush) -> dict:
+    """SSD intra-chunk term at mamba2-1.3b's width: 64 heads of 64, state
+    128, chunk 256, one group (Bh/Ch an expand view over heads, as
+    ``ssd_chunked`` passes them).  Checked and timed at the shapes phase
+    5c's prefills give it (b 1, nc 1 and 2: prompts of 64 .. 512 tokens)
+    and at a 2048-token prompt (nc 8), which is the record's shape; plus a
+    ragged smoke shape with two groups (materialised by repeat_interleave).
+    f32 throughout; tolerance 1e-5 of the output's largest magnitude (f32
+    sums over up to q * n products in another order)."""
+    import torch
+    from repro_torch.kernels.ssd.ops import ssd_intra, ssd_intra_plain
+
+    def inputs(b, nc, q, h, p, n, groups, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        xb = torch.randn((b, nc, q, h, p), generator=g, device=dev)
+        dt = torch.nn.functional.softplus(torch.randn((b, nc, q, h), generator=g, device=dev))
+        A = -torch.exp(0.3 * torch.randn((h,), generator=g, device=dev))
+        acs = torch.cumsum(A * dt, dim=2)
+        Bq = torch.randn((b, nc, q, groups, n), generator=g, device=dev)
+        Cq = torch.randn((b, nc, q, groups, n), generator=g, device=dev)
+        if groups == 1:
+            Bh, Ch = Bq.expand(b, nc, q, h, n), Cq.expand(b, nc, q, h, n)
+        else:
+            Bh = Bq.repeat_interleave(h // groups, dim=3)
+            Ch = Cq.repeat_interleave(h // groups, dim=3)
+        return xb, acs, Bh, Ch
+
+    widths = {"nc 1 (phase 5c)": inputs(1, 1, 256, 64, 64, 128, 1, SEED + 4),
+              "nc 2 (phase 5c)": inputs(1, 2, 256, 64, 64, 128, 1, SEED + 11),
+              "nc 8 (2048 tokens)": inputs(1, 8, 256, 64, 64, 128, 1, SEED + 5)}
+    errs = {}
+    for name, args in (*widths.items(),
+                       ("ragged, 2 groups", inputs(2, 3, 40, 4, 16, 16, 2, SEED + 6))):
+        out = ssd_intra(*args)
+        torch.cuda.synchronize()
+        ref = ssd_intra_plain(*args)
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        log(f"[kernels] ssd_intra {name} {tuple(args[0].shape)}: max |kernel - plain| = "
+            f"{err:.3e} (tol {tol:.3e})")
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"ssd_intra {name} disagrees with its plain version: {err}")
+        errs[name] = err
+
+    for name, args in widths.items():
+        xb, acs, Bh, Ch = args
+        b, nc, q, h, p = xb.shape
+        n = Bh.shape[-1]
+        ms = timed_ms(lambda: ssd_intra(*args), flush=flush)
+        plain_ms = timed_ms(lambda: ssd_intra_plain(*args), flush=flush)
+        tri = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
+
+        def lib():
+            scores = torch.matmul(Ch.permute(0, 1, 3, 2, 4), Bh.permute(0, 1, 3, 4, 2))
+            a = acs.permute(0, 1, 3, 2)                                # (b, nc, h, q)
+            L = torch.where(tri, torch.exp(a[..., :, None] - a[..., None, :]), 0.0)
+            return torch.matmul(scores * L, xb.permute(0, 1, 3, 2, 4))  # (b, nc, h, q, p)
+
+        lib_err = (lib().permute(0, 1, 3, 2, 4) - ssd_intra_plain(*args)).abs().max().item()
+        library_ms = timed_ms(lib, flush=flush)
+        # least time: the JAX layout's bytes (Bh and Ch materialised per
+        # head), each read once, y written once; flops: C.B and P.x over the
+        # causal pairs, f32 on the CUDA cores (the JAX function is f32 end
+        # to end)
+        bc = b * nc
+        n_bytes = 4 * (2 * bc * q * h * p + bc * q * h + 2 * bc * q * h * n)
+        flops = 2.0 * (n + p) * bc * h * (q * (q + 1) // 2)
+        b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+        log(f"[kernels] ssd_intra f32 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"two matmuls + masked exp {library_ms:.4f} ms (|library - plain| {lib_err:.2e}), "
+            f"bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at "
+            f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s f32; {n_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
+            f"for the bytes alone)")
+    return {"name": "ssd_intra", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_intra.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:37",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def bf16_tol(ref) -> float:
+    """A bf16 output's limit: 1e-2 of its largest magnitude.  Two f32
+    results that agree closely round to bf16 values at most one step apart,
+    2^-7 (0.78e-2) of the value; a fixed limit would be loose for the small
+    outputs of a long random prefix."""
+    return 1e-2 * ref.float().abs().max().item()
+
+
+def check_dense_decode(dev, flush) -> dict:
+    """Dense decode attention at zamba2-2.7b's shared-attention shape (B 8,
+    S 4096, 32 / 32 heads of 80, pos 3000), at gemma3-4b's local layers
+    (8 / 4 heads of 256, window 1024) and at an unaligned pos of 17.  f32
+    at 1e-4 on the first two; bf16 on all three at :func:`bf16_tol`."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_plain)
+
+    def inputs(B, S, Hq, Hkv, D, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn((B, 1, Hq, D), generator=g, device=dev),
+                torch.randn((B, S, Hkv, D), generator=g, device=dev),
+                torch.randn((B, S, Hkv, D), generator=g, device=dev))
+
+    zamba = inputs(8, 4096, 32, 32, 80, SEED + 8)
+    gemma = inputs(8, 4096, 8, 4, 256, SEED + 9)
+    cases = [("zamba2 f32", zamba, torch.float32, 3000, None),
+             ("zamba2 bf16", zamba, torch.bfloat16, 3000, None),
+             ("gemma3 local f32", gemma, torch.float32, 3000, 1024),
+             ("gemma3 local bf16", gemma, torch.bfloat16, 3000, 1024),
+             ("zamba2 bf16 pos 17", zamba, torch.bfloat16, 17, None)]
+    errs = {}
+    for name, (q, k, v), dt, pos, window in cases:
+        args = (q.to(dt), k.to(dt), v.to(dt), pos)
+        out = decode_attention(*args, window=window)
+        torch.cuda.synchronize()
+        ref = decode_attention_plain(*args, window=window or -1)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 1e-4 if dt == torch.float32 else bf16_tol(ref)
+        log(f"[kernels] dense_decode_attention {name} (pos {pos}, window {window}): "
+            f"max |kernel - plain| = {err:.3e} (tol {tol:.3e}, max |plain| "
+            f"{ref.float().abs().max().item():.3e})")
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"dense_decode_attention {name} disagrees with its plain "
+                                 f"version: {err}")
+        errs[name] = err
+        del args, out, ref
+
+    q, k, v = (t.bfloat16() for t in zamba)
+    del zamba, gemma
+    B, S, Hkv, D = k.shape
+    Hq, pos = q.shape[2], 3000
+    ms = timed_ms(lambda: decode_attention(q, k, v, pos), flush=flush)
+    plain_ms = timed_ms(lambda: decode_attention_plain(q, k, v, pos), flush=flush)
+    qt, kt, vt = q.transpose(1, 2), k[:, :pos].transpose(1, 2), v[:, :pos].transpose(1, 2)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=Hq != Hkv)
+
+    lib_err = (lib().transpose(1, 2).float()
+               - decode_attention_plain(q, k, v, pos).float()).abs().max().item()
+    library_ms = timed_ms(lib, flush=flush)
+    # least time: the K and V of the live positions read once, q read and
+    # out written once; flops: QK^T and PV over the live keys
+    n_bytes = 2 * B * pos * Hkv * D * 2 + 2 * q.numel() * 2
+    flops = 4.0 * B * Hq * pos * D
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    log(f"[kernels] dense_decode_attention bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa over the live prefix {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), "
+        f"bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
+    return {"name": "dense_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dense_decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:68",
+            "max_abs_err": errs["zamba2 bf16"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------------------------
 # phases 4-7: the serving paths
 # ---------------------------------------------------------------------------------
@@ -463,6 +638,60 @@ def small_reference(dev, *, chunked: bool = True) -> None:
         f"max |score diff| {dscore:.2e}")
     if not (same and len(outs["cuda"]) == 6 and dscore < 1e-4):
         raise AssertionError("the engine on the card disagrees with the CPU reference")
+
+
+def ssm_reference(dev) -> None:
+    """The ssm path's small references at float32: mamba2-smoke through the
+    dense-cache engine on the card (SSD kernel) and on the CPU (plain
+    version) emits identical tokens in the same step count; zamba2-smoke,
+    which the engine refuses (its decode takes one position for all rows),
+    at model level: prefill, then four decode steps at a scalar position."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("mamba2-1.3b"), dtype=torch.float32)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        params = to_device(build_model(cfg, device="cpu").init_params(SEED), where)
+        eng = ServingEngine(build_model(cfg, device=where), params,
+                            ServeConfig(max_batch=4, max_len=64), device=where)
+        rng = np.random.default_rng(SEED)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(4, 40))),
+                               max_new_tokens=int(rng.integers(1, 16))))
+        eng.run_until_drained()
+        runs[where] = ([(r.rid, r.output) for r in eng.completed], eng.step_count,
+                       {r.rid: r.score for r in eng.completed})
+    same = runs["cpu"][:2] == runs["cuda"][:2]
+    dscore = max(abs(runs["cpu"][2][r] - runs["cuda"][2][r]) for r in runs["cpu"][2])
+    log(f"[reference] mamba2-smoke f32 dense-cache engine, card vs CPU: tokens, completion "
+        f"order and step count ({runs['cuda'][1]}) identical {same}, max |score diff| "
+        f"{dscore:.2e}")
+    if not (same and len(runs["cuda"][0]) == 6 and dscore < 1e-4):
+        raise AssertionError("the mamba2 engine on the card disagrees with the CPU reference")
+
+    cfg = dataclasses.replace(get_smoke_config("zamba2-2.7b"), dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 3).integers(0, cfg.vocab, (2, 21)))
+    toks = {}
+    for where in ("cpu", "cuda"):
+        model = build_model(cfg, device=where)
+        params = to_device(build_model(cfg, device="cpu").init_params(SEED), where)
+        logits, cache = model.prefill(params, {"tokens": tokens.to(where)}, max_len=32)
+        out = [logits[:, 0].argmax(-1)]
+        for i in range(4):
+            logits, cache = model.decode_step(params, cache, out[-1][:, None], 21 + i)
+            out.append(logits[:, 0].argmax(-1))
+        toks[where] = torch.stack(out, 1).cpu()
+    same = torch.equal(toks["cpu"], toks["cuda"])
+    log(f"[reference] zamba2-smoke f32 model level (prefill + 4 decode steps), card vs CPU: "
+        f"tokens identical {same}")
+    if not same:
+        raise AssertionError("the zamba2 model on the card disagrees with the CPU reference")
 
 
 def main_requests(vocab):
@@ -558,6 +787,140 @@ def bucketed_path(dev, model, params, counters, chunked_tokens) -> dict:
     return launches
 
 
+def ssm_path(dev, model, params, counters) -> tuple[dict, float]:
+    """Phase 5c: phase 5's requests through the dense-cache engine on
+    mamba2-1.3b at full width.  Each admitted request is prefilled alone
+    (one SSD intra-chunk launch per layer); each engine step decodes all
+    eight slots.  Returns (launches, wall seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = model.cfg
+    eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024), device=dev)
+    reqs = main_requests(cfg.vocab)
+    for r in reqs:
+        eng.submit(r)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    emitted = sum(len(r.output) for r in reqs)
+    prefills = eng._prefill_rows
+    ok = (not eng.paged and len(eng.completed) == len(reqs)
+          and all(len(r.output) == r.max_new_tokens for r in reqs)
+          and all(0 <= t < cfg.vocab for r in reqs for t in r.output)
+          and all(np.isfinite(r.score) and r.score <= 0.0 for r in reqs)
+          and launches["ssd_intra"] == cfg.n_layers * prefills
+          and all(v > 0 for v in launches.values()))
+    log(f"[ssm] {cfg.name} bf16, {cfg.n_layers} layers, d={cfg.d_model}, dense-cache engine: "
+        f"{len(eng.completed)}/{len(reqs)} requests, {sum(len(r.prompt) for r in reqs)} prompt "
+        f"+ {emitted} emitted tokens in {wall:.3f} s ({emitted / wall:.1f} emitted tok/s, "
+        f"{eng.step_count} engine steps of {1e3 * wall / eng.step_count:.2f} ms, {prefills} "
+        f"prefills); launches {launches} (ssd_intra = {cfg.n_layers} x {prefills} prefills: "
+        f"{launches['ssd_intra'] == cfg.n_layers * prefills})")
+    log(f"[ssm] peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB (weights "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**20:.0f} MiB, dense "
+        f"cache {sum(t.numel() * t.element_size() for t in eng.cache.values()) / 2**20:.0f} MiB)")
+    if not ok:
+        raise AssertionError("ssm path failed: incomplete requests, bad outputs, or a kernel "
+                             "launch count that does not match one per layer per prefill")
+    return launches, wall
+
+
+def ssm_prefill_profile(dev, model, params, path_wall_s: float) -> None:
+    """Phase 5c's 16 prefills again, as the engine runs them (one request
+    at a time, ``model.prefill`` at max_len 1024), under torch.profiler: the
+    device time of the SSD kernel at the shapes phase 5c gives it, and its
+    share of phase 5c's wall."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts = [torch.from_numpy(np.asarray(r.prompt, np.int64)).to(dev)[None]
+               for r in main_requests(model.cfg.vocab)]
+
+    def prefills():
+        for tokens in prompts:
+            model.prefill(params, {"tokens": tokens}, max_len=1024)
+        torch.cuda.synchronize()
+
+    prefills()                                     # warm
+    t0 = time.perf_counter()
+    prefills()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefills()
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    ssd = [r for r in rows if "ssd_intra_kernel" in r[2]]
+    if not ssd:
+        log("[ssm prefill] the profiler reported no ssd_intra device time: not measured")
+        return
+    busy_ms = sum(r[0] for r in rows)
+    ssd_ms, ssd_n = sum(r[0] for r in ssd), sum(r[1] for r in ssd)
+    log(f"[ssm prefill] phase 5c's 16 prefills ({sum(p.shape[1] for p in prompts)} prompt "
+        f"tokens, nc 1-2 of chunk {model.cfg.ssm.chunk}): wall {wall_ms:.2f} ms unprofiled, "
+        f"device busy {busy_ms:.2f} ms; ssd_intra x{ssd_n} {ssd_ms:.3f} ms device "
+        f"({1e3 * ssd_ms / ssd_n:.1f} us a launch, {100 * ssd_ms / busy_ms:.1f}% of the "
+        f"prefills' device time, {100 * ssd_ms / (1e3 * path_wall_s):.2f}% of phase 5c's "
+        f"{path_wall_s:.3f} s wall)")
+    for dev_ms, count, key in sorted(rows, reverse=True)[:6]:
+        log(f"[ssm prefill]   {dev_ms:9.3f} ms {100 * dev_ms / busy_ms:5.1f}%  x{count:<6d} "
+            f"{key[:80]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def mha_decode_path(dev, counter) -> int:
+    """Phase 5d: ``attention.mha_decode(use_kernel=True)``, the only entry
+    point of the dense decode-attention kernel (no serving path calls it,
+    in the JAX package either), over eight decode positions at zamba2-2.7b's
+    shared-attention shape: each step writes the new token's K/V at
+    ``pos - 1`` of a dense bf16 cache, then attends, against the plain
+    route (masked sdpa)."""
+    import torch
+    from repro_torch.models.attention import mha_decode
+
+    B, S, H, D = 8, 4096, 32, 80
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    k = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+    counter.launches = 0
+    worst, worst_tol, ok = 0.0, 0.0, True
+    for pos in range(3001, 3009):
+        q = torch.randn((B, 1, H, D), generator=g, device=dev).bfloat16()
+        k[:, pos - 1] = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
+        v[:, pos - 1] = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
+        out = mha_decode(q, k, v, pos, use_kernel=True)
+        ref = mha_decode(q, k, v, pos)
+        err, tol = (out.float() - ref.float()).abs().max().item(), bf16_tol(ref)
+        ok = ok and err <= tol
+        if err >= worst:
+            worst, worst_tol = err, tol
+    torch.cuda.synchronize()
+    launches = counter.launches
+    log(f"[mha_decode] zamba2-2.7b shared-attention shape, 8 decode positions 3001..3008: "
+        f"{launches} dense_decode_attention launches, max |kernel - masked sdpa| "
+        f"{worst:.3e} (tol {worst_tol:.3e} at that step; 1e-2 of max |sdpa| at each)")
+    if launches != 8 or not ok:
+        raise AssertionError("mha_decode(use_kernel=True) did not run the dense kernel, "
+                             "or disagrees with the plain route")
+    return launches
+
+
 def path_agreement_f32(dev) -> None:
     """Both paths on smollm-135m at full width in float32 (seeded random
     weights), 8 requests of 16 new tokens: the share of requests with equal
@@ -589,7 +952,8 @@ def path_agreement_f32(dev) -> None:
         f"requests emit equal tokens, {first}/8 equal first tokens (printed, not gated)")
 
 
-def scaling_loop(dev, model, params, counters) -> None:
+def scaling_loop(dev, model, params, counters, *, n_requests: int = 24,
+                 tag: str = "[scaling]") -> None:
     import numpy as np
     import torch
     from repro_torch.core.scaling import make_policy
@@ -599,7 +963,7 @@ def scaling_loop(dev, model, params, counters) -> None:
 
     V = model.cfg.vocab
     eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024), device=dev)
-    stream = request_stream(n_requests=24, seed=SEED, mean_prompt=128, mean_decode=32,
+    stream = request_stream(n_requests=n_requests, seed=SEED, mean_prompt=128, mean_decode=32,
                             burst_times=(15.0,), horizon_s=30.0)
     reqs = [Request(rid=i, arrival_s=t,
                     prompt=np.random.default_rng(i).integers(0, V, min(p, 512)),
@@ -614,7 +978,7 @@ def scaling_loop(dev, model, params, counters) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
-    log(f"[scaling] appdata over the live engine: {rep.n_done}/{len(reqs)} completed, "
+    log(f"{tag} appdata over the live {model.cfg.name} engine: {rep.n_done}/{len(reqs)} completed, "
         f"SLA({rep.sla_s:.0f}s) violations {100 * rep.violation_rate:.2f}%, slots peak "
         f"{rep.max_units}/8, {rep.n_decisions_up} up / {rep.n_decisions_down} down, "
         f"{eng.step_count} engine steps in {wall:.2f} s wall; launches {launches}")
@@ -622,7 +986,8 @@ def scaling_loop(dev, model, params, counters) -> None:
         raise AssertionError("scaling loop did not complete every request on the kernels")
 
 
-def profile_window(dev, model, params, *, chunked: bool = True) -> None:
+def profile_window(dev, model, params, *, chunked: bool = True, tag: str = "[profile]",
+                   kind: str = "mixed iterations") -> None:
     """Device time by kernel over three engine steps of one path: one
     engine runs them unprofiled for the wall time, a twin engine with the
     same requests runs them under torch.profiler for the device time."""
@@ -656,12 +1021,10 @@ def profile_window(dev, model, params, *, chunked: bool = True) -> None:
         prof_wall_ms, _ = three_steps(twin)
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    tag = "[profile]" if chunked else "[profile bucketed]"
     if not rows:
         log(f"{tag} the profiler reported no device time: not measured")
         return
     busy_ms = sum(r[0] for r in rows)
-    kind = "mixed iterations" if chunked else "decode steps"
     log(f"{tag} 3 engine steps ({iters - 1} {kind} after warm-up): wall "
         f"{wall_ms:.2f} ms unprofiled ({prof_wall_ms:.2f} ms profiled); device busy "
         f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% of the unprofiled wall")
@@ -677,9 +1040,10 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention.ops import (
-        decode_attention_mixed, decode_attention_paged)
+        decode_attention, decode_attention_mixed, decode_attention_paged)
     from repro_torch.kernels.flash_attention.ops import flash_attention_dyn
     from repro_torch.kernels.sampling.ops import fused_lmhead_greedy, greedy_epilogue
+    from repro_torch.kernels.ssd.ops import ssd_intra
     from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -704,7 +1068,8 @@ def main() -> int:
     flush = scratch.zero_
     records = [check_attention(dev, flush), check_lmhead(dev, flush),
                check_paged_decode(dev, flush), check_greedy(dev, flush),
-               check_flash(dev, flush)]
+               check_flash(dev, flush), check_dense_decode(dev, flush),
+               check_ssd_intra(dev, flush)]
     del scratch
     small_reference(dev)
     small_reference(dev, chunked=False)
@@ -719,13 +1084,29 @@ def main() -> int:
     path_agreement_f32(dev)
     scaling_loop(dev, model, params, counters)
     profile_window(dev, model, params)
-    profile_window(dev, model, params, chunked=False)
+    profile_window(dev, model, params, chunked=False, tag="[profile bucketed]",
+                   kind="decode steps")
+
+    # the ssm path: mamba2-1.3b through the dense-cache engine
+    ssm_reference(dev)
+    ssm_counters = (ssd_intra, greedy_epilogue)
+    del model, params
+    torch.cuda.empty_cache()
+    ssm_model = build_model(get_config("mamba2-1.3b"))              # on the GPU
+    ssm_params = ssm_model.init_params(SEED)
+    ssm_launches, ssm_wall_s = ssm_path(dev, ssm_model, ssm_params, ssm_counters)
+    ssm_prefill_profile(dev, ssm_model, ssm_params, ssm_wall_s)
+    dense_launches = mha_decode_path(dev, decode_attention)
+    scaling_loop(dev, ssm_model, ssm_params, ssm_counters, n_requests=12, tag="[scaling ssm]")
+    profile_window(dev, ssm_model, ssm_params, tag="[profile ssm]", kind="decode steps")
 
     by_kernel = {"paged_mixed_attention": launches["decode_attention_mixed"],
                  "lmhead_greedy": launches["fused_lmhead_greedy"],
                  "paged_decode_attention": launches["decode_attention_paged"],
                  "greedy_epilogue": launches["greedy_epilogue"],
-                 "flash_attention": launches["flash_attention_dyn"]}
+                 "flash_attention": launches["flash_attention_dyn"],
+                 "ssd_intra": ssm_launches["ssd_intra"],
+                 "dense_decode_attention": dense_launches}
     for rec in records:
         rec["launches"] = by_kernel[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

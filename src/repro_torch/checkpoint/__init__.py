@@ -1,3 +1,3 @@
-from repro_torch.checkpoint.store import load_jax_npz, params_from_jax
+from repro_torch.checkpoint.store import F32_LEAVES, load_jax_npz, params_from_jax
 
-__all__ = ["load_jax_npz", "params_from_jax"]
+__all__ = ["F32_LEAVES", "load_jax_npz", "params_from_jax"]

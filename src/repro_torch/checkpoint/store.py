@@ -6,7 +6,7 @@ flattened tree paths (``embed``, ``ln_f``, ``blocks/wq``,
 numpy has no bfloat16, so a bf16 leaf is stored as its uint16 bit pattern
 under the key plus ``__bf16__``.  This module reads that format with numpy
 and torch alone (no ``ml_dtypes``) and maps the tree onto the port's
-parameters (:mod:`repro_torch.models.lm`).
+parameters (:mod:`repro_torch.models.lm`, :mod:`repro_torch.models.mamba_lm`).
 """
 from __future__ import annotations
 
@@ -31,28 +31,43 @@ def load_jax_npz(path: str) -> dict[str, torch.Tensor]:
     return flat
 
 
+# leaves the JAX package keeps in float32 whatever ``cfg.dtype`` is (the
+# Mamba-2 layer's decay, skip and step-bias vectors, ``mamba_lm.py``)
+F32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
+
+
+def _nest(tree: dict, key: str, value) -> None:
+    *outer, leaf = key.split("/")
+    for name in outer:
+        tree = tree.setdefault(name, {})
+    tree[leaf] = value
+
+
 def params_from_jax(flat, *, device="cpu", dtype=None) -> dict:
     """Map a flattened JAX parameter tree onto the port's parameters.
 
     ``flat``: {tree path: numpy array or tensor}, e.g. from
-    :func:`load_jax_npz`; block leaves have a leading layer dim that is split
-    into the per-layer dictionaries of ``params["blocks"]``.  ``dtype``, if
-    given, casts every floating leaf.
+    :func:`load_jax_npz`.  Every ``/``-separated path becomes nested
+    dictionaries (``shared_attn/mlp/w_gate`` ->
+    ``params["shared_attn"]["mlp"]["w_gate"]``); ``blocks/...`` leaves have
+    a leading layer dim that is split into the per-layer dictionaries of
+    ``params["blocks"]``.  ``dtype``, if given, casts every floating leaf
+    except those the JAX package keeps in float32 (:data:`F32_LEAVES`).
     """
-    def tensor(a):
+    def tensor(key, a):
         t = torch.from_numpy(np.array(a)) if isinstance(a, np.ndarray) else a
-        if dtype is not None and t.is_floating_point():
+        if (dtype is not None and t.is_floating_point()
+                and key.rsplit("/", 1)[-1] not in F32_LEAVES):
             t = t.to(dtype)
         return t.to(device)
 
     params: dict = {}
     blocks: dict[str, torch.Tensor] = {}
     for key, a in flat.items():
-        parts = key.split("/")
-        if parts[0] == "blocks":
-            blocks["/".join(parts[1:])] = tensor(a)
+        if key.startswith("blocks/"):
+            blocks[key[len("blocks/"):]] = tensor(key, a)
         else:
-            params[key] = tensor(a)
+            _nest(params, key, tensor(key, a))
     n_layers = {t.shape[0] for t in blocks.values()}
     if len(n_layers) > 1:
         raise ValueError(f"block leaves disagree on the layer count: {n_layers}")
@@ -60,13 +75,9 @@ def params_from_jax(flat, *, device="cpu", dtype=None) -> dict:
     for layer in range(n_layers.pop() if n_layers else 0):
         bp: dict = {}
         for key, t in blocks.items():
-            *outer, leaf = key.split("/")
-            node = bp
-            for name in outer:
-                node = node.setdefault(name, {})
-            node[leaf] = t[layer].contiguous()
+            _nest(bp, key, t[layer].contiguous())
         params["blocks"].append(bp)
     return params
 
 
-__all__ = ["load_jax_npz", "params_from_jax"]
+__all__ = ["F32_LEAVES", "load_jax_npz", "params_from_jax"]

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the dense archs the mixed path serves.
+"""Architecture registry of the port: the dense archs the paged paths serve
+and the ssm/hybrid archs of the dense-cache path.
 
 ``get_config(arch_id)`` -> full ModelConfig (exact published sizes)
 ``get_smoke_config(arch_id)`` -> reduced same-family config for CPU tests
@@ -9,7 +10,7 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-ARCHS = ["smollm-135m", "gemma3-4b", "qwen2.5-3b"]
+ARCHS = ["smollm-135m", "gemma3-4b", "qwen2.5-3b", "mamba2-1.3b", "zamba2-2.7b"]
 
 
 def _mod(arch: str):

@@ -1,9 +1,13 @@
-"""Paged attention over the KV pool: the CUDA kernels' wrappers and their
-plain versions.
+"""Decode attention: the CUDA kernels' wrappers and their plain versions.
 
-Counterparts of ``decode_attention_mixed`` and ``decode_attention_paged``
-in ``repro.kernels.decode_attention.ops``:
+Counterparts of ``decode_attention``, ``decode_attention_mixed`` and
+``decode_attention_paged`` in ``repro.kernels.decode_attention.ops``:
 
+* the dense one-query kernel ``csrc/dense_decode_attention.cu`` (one
+  scalar ``pos`` over a dense (B, S, Hkv, D) cache, reached through
+  ``attention.mha_decode(use_kernel=True)``);
+  :func:`decode_attention_plain` is the masked sdpa of the JAX
+  ``mha_decode`` with the kernel's rule for a row with no visible key;
 * the mixed-span kernel ``csrc/paged_mixed_attention.cu`` (T queries per
   row, the chunked path); :func:`paged_mixed_attention_plain` is gather +
   span mask + sdpa, the ``use_kernel=False`` branch of the JAX
@@ -193,5 +197,92 @@ def decode_attention_paged(q1, k_pages, v_pages, block_table, lengths, *,
 decode_attention_paged.launches = 0     # kernel launches, for the chip smoke run
 
 
-__all__ = ["decode_attention_mixed", "paged_mixed_attention_plain",
+# ---------------------------------------------------------------------------------
+# dense cache, one scalar position (attention.mha_decode)
+# ---------------------------------------------------------------------------------
+
+_DENSE_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+
+
+def _dense_span(S: int, pos: int, window: int) -> tuple[int, int]:
+    """Visible keys ``[lo, hi)`` of a dense cache of S positions."""
+    return (max(pos - window, 0) if window > 0 else 0), min(pos, S)
+
+
+def decode_attention_plain(q1, k_cache, v_cache, pos, *, window: int = -1):
+    """Plain version of :func:`decode_attention`: keys ``k < pos`` (and
+    ``k >= pos - window`` when ``window`` > 0) through the masked sdpa.  A
+    row with no visible key (``pos <= 0``) gives zeros, as the kernel's
+    denominator clamp does."""
+    pos, window = int(pos), int(window)
+    S = k_cache.shape[1]
+    lo, hi = _dense_span(S, pos, window)
+    if hi <= lo:
+        return torch.zeros_like(q1)
+    k_pos = torch.arange(S, device=q1.device)
+    valid = (k_pos >= lo) & (k_pos < hi)
+    return sdpa(q1, k_cache, v_cache, valid[None, :])
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_kernel():
+    fn = build.load("dense_decode_attention").dense_decode_attention
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention(q1, k_cache, v_cache, pos, *, window: int | None = None,
+                     block_k: int | None = None):
+    """One query per row over a dense cache, all rows at one position.
+
+    q1: (B, 1, Hq, D); caches: (B, S, Hkv, D), contiguous, float32 or bf16
+    like q1; ``pos``: the number of valid entries (the new token's KV
+    written at ``pos - 1``), an int or a 0-d tensor shared by every row;
+    ``window``: sliding-window width, falsy = none.  ``block_k`` is the TPU
+    kernel's key-tile width, accepted for signature parity; the CUDA kernel
+    picks its own chunk.  Returns (B, 1, Hq, D) in q1's dtype.
+    """
+    window = int(window) if window else -1
+    pos = int(pos)
+    if not q1.is_cuda:
+        return decode_attention_plain(q1, k_cache, v_cache, pos, window=window)
+    if q1.dim() != 4 or q1.shape[1] != 1:
+        raise ValueError(f"decode_attention: q1 {tuple(q1.shape)} is not (B, 1, Hq, D)")
+    B, _, Hq, D = q1.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.device != q1.device or v_cache.device != q1.device:
+        raise ValueError("decode_attention: tensors on different devices")
+    if q1.dtype not in (torch.float32, torch.bfloat16) or k_cache.dtype != q1.dtype \
+            or v_cache.dtype != q1.dtype:
+        raise TypeError(f"decode_attention: dtypes q {q1.dtype} k {k_cache.dtype} "
+                        f"v {v_cache.dtype} unsupported (float32 or bfloat16, alike)")
+    if (k_cache.shape != (B, S, Hkv, D) or v_cache.shape != k_cache.shape or Hq % Hkv
+            or D not in _DENSE_HEAD_DIMS):
+        raise ValueError(f"decode_attention: shapes q {tuple(q1.shape)} "
+                         f"cache {tuple(k_cache.shape)} unsupported "
+                         f"(head dim in {_DENSE_HEAD_DIMS})")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()) or (
+            k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16):
+        raise ValueError("decode_attention: caches must be contiguous and 16-byte "
+                         "aligned (the kernel stages rows with 16-byte copies)")
+    q = q1.contiguous()
+    out = torch.empty_like(q)
+    if B:
+        err = _dense_kernel()(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr(), B, S, Hq, Hkv, D, pos, window, D ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"dense_decode_attention launch failed: CUDA error {err}")
+        decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0           # kernel launches, for the chip smoke run
+
+
+__all__ = ["decode_attention", "decode_attention_plain",
+           "decode_attention_mixed", "paged_mixed_attention_plain",
            "decode_attention_paged", "paged_decode_attention_plain"]

@@ -5,6 +5,9 @@ plane driving decode-slot elasticity.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --policy appdata --device cuda
 
+``--arch mamba2-1.3b`` serves the ssm family through the engine's
+dense-cache fallback (its prefill runs the SSD intra-chunk kernel).
+
 Counterpart of ``repro.launch.serve`` (single engine; the replica fleet is
 not ported yet).  :class:`ServeBackend` is a scalable backend over the
 *live* :class:`~repro_torch.serving.ServingEngine`: the unit of elasticity
@@ -221,7 +224,7 @@ def serve(args) -> int:
           f"SLA({args.sla}s) violations {100 * rep.violation_rate:.2f}%; "
           f"slots peak {rep.max_units}/{args.batch}; "
           f"stragglers evicted {backend.evictions} "
-          f"(page size {eng.kv.page_size}, "
+          f"(page size {eng.kv.page_size if eng.paged else '-'}, "
           f"prefill occupancy {eng.prefill_occupancy:.2f})")
     return 0
 

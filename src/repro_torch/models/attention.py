@@ -1,7 +1,8 @@
 """Multi-head attention (GQA / causal / sliding-window) in plain PyTorch.
 
 Counterpart of ``repro.models.attention``; ``sdpa`` is also the plain
-version the paged mixed-attention kernel is held against.
+version the attention kernels are held against.  :func:`mha_decode` with
+``use_kernel=True`` runs the dense decode-attention kernel on the card.
 """
 from __future__ import annotations
 
@@ -47,4 +48,21 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
-__all__ = ["attention_mask", "sdpa", "NEG_INF"]
+def mha_decode(q1, k_cache, v_cache, pos, *, window: int | None = None,
+               use_kernel: bool = False) -> torch.Tensor:
+    """One-token decode: q1 (B, 1, Hq, D) against caches (B, S_max, Hkv, D);
+    ``pos`` = number of valid entries (the new token's KV must already be
+    written at index pos - 1).  ``use_kernel`` routes through
+    :func:`~repro_torch.kernels.decode_attention.ops.decode_attention` (the
+    CUDA kernel for CUDA tensors, its plain version for CPU ones)."""
+    if use_kernel:
+        from repro_torch.kernels.decode_attention.ops import decode_attention
+        return decode_attention(q1, k_cache, v_cache, pos, window=window)
+    k_pos = torch.arange(k_cache.shape[1], device=q1.device)
+    valid = k_pos < pos
+    if window is not None:
+        valid &= k_pos >= pos - window
+    return sdpa(q1, k_cache, v_cache, valid[None, :])        # (Sq=1, Sk)
+
+
+__all__ = ["attention_mask", "sdpa", "mha_decode", "NEG_INF"]

@@ -12,8 +12,10 @@ layer's attention runs the paged mixed-attention kernel and the lm head runs
 the fused lm-head kernel.  :func:`prefill` and :func:`decode_step` are the
 bucketed path: prefill attention runs the flash-attention kernel, decode
 attention the paged decode kernel, and the full-vocab head product stays a
-plain matmul (the JAX package leaves it to XLA).  On the CPU every wrapper
-runs its plain version.
+plain matmul (the JAX package leaves it to XLA).  Over the dense cache of
+``ServeConfig(paged=False)`` (``block_table=None``) decode attention is the
+masked sdpa, as in the JAX package.  On the CPU every wrapper runs its
+plain version.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.kernels.decode_attention.ops import (
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention_dyn
 from repro_torch.kernels.sampling.ops import fused_lmhead_greedy
-from repro_torch.models.attention import NEG_INF
+from repro_torch.models.attention import NEG_INF, sdpa
 from repro_torch.models.common import (
     ModelConfig, apply_rope, gated_mlp, init_dense, rms_norm, rope_tables,
 )
@@ -177,20 +179,31 @@ def block_forward(x, bp, window: int, cos, sin, cfg: ModelConfig):
 
 
 def block_decode(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
-                 cfg: ModelConfig, cache_ks=None, cache_vs=None, *, block_table):
-    """One-token decode over a paged cache: x (B, 1, d), row b's token at
-    logical position ``pos[b]``.
+                 cfg: ModelConfig, cache_ks=None, cache_vs=None, *, block_table=None):
+    """One-token decode: x (B, 1, d).  ``cache_ks/vs``: int8 scale caches.
 
-    The token's KV is written into the row's page first (in place), then
-    the query attends keys ``[0, pos]`` of its row through
-    :func:`decode_attention_paged` (the CUDA kernel on the card, gather +
-    vector mask + sdpa on the CPU).  ``cache_ks/vs``: int8 scale pools."""
+    With ``block_table`` (B, n) the caches are paged pools (P, ps, Hkv, hd):
+    row b's token at logical position ``pos[b]`` is written into its page
+    first (in place), then the query attends keys ``[0, pos]`` of its row
+    through :func:`decode_attention_paged` (the CUDA kernel on the card,
+    gather + vector mask + sdpa on the CPU).
+
+    Without one they are dense (B, S_max, Hkv, hd) caches, ``pos`` a scalar
+    (every row) or a (B,) vector (per row): the token is written in place
+    (:class:`~repro_torch.serving.kvcache.DenseScalarOps` /
+    ``DenseVectorOps``) and the masked sdpa attends, as the JAX
+    ``block_decode`` does for a dense cache."""
     int8_kv = cache_ks is not None
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(h, bp, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    ops = kvcache.PagedOps(block_table)
+    if block_table is not None:
+        ops = kvcache.PagedOps(block_table)
+    elif torch.is_tensor(pos) and pos.dim() == 1:
+        ops = kvcache.DenseVectorOps()
+    else:
+        ops = kvcache.DenseScalarOps(x.device)
     if int8_kv:
         k_store, k_sc = _kv_quantize(k)
         v_store, v_sc = _kv_quantize(v)
@@ -200,8 +213,15 @@ def block_decode(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
         k_store, v_store = k, v
     ops.write(cache_k, k_store, pos)
     ops.write(cache_v, v_store, pos)
-    o = decode_attention_paged(q, cache_k, cache_v, block_table, pos + 1,
-                               window=window, k_scale=cache_ks, v_scale=cache_vs)
+    if block_table is not None:
+        o = decode_attention_paged(q, cache_k, cache_v, block_table, pos + 1,
+                                   window=window, k_scale=cache_ks, v_scale=cache_vs)
+    else:
+        k_eff, v_eff = cache_k, cache_v
+        if int8_kv:
+            k_eff = _kv_dequantize(k_eff, cache_ks, cfg.dtype)
+            v_eff = _kv_dequantize(v_eff, cache_vs, cfg.dtype)
+        o = sdpa(q, k_eff, v_eff, ops.mask(k_eff.shape[1], pos, window))
     x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     return x + _ffn(h, bp, cfg)
@@ -309,14 +329,19 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
     return logits, {"k": ks.to(cfg.dtype), "v": vs.to(cfg.dtype)}
 
 
-def decode_step(params, cache, token, pos, cfg: ModelConfig, *, block_table):
-    """One token per row over a paged cache (leaves (L, P, ps, ...)):
-    token (B, 1) at logical positions ``pos`` (B,), rows' pages in
-    ``block_table`` (B, n).  Returns ``(logits (B, 1, V) f32, cache)``; the
-    token's KV is written into the pages in place and the same dictionary
-    is returned."""
+def decode_step(params, cache, token, pos, cfg: ModelConfig, *, block_table=None):
+    """One token per row: token (B, 1).  With ``block_table`` (B, n) the
+    cache leaves are paged pools (L, P, ps, ...) and ``pos`` (B,) holds each
+    row's logical position; without, they are the dense (L, B, S_max, ...)
+    cache of :func:`init_cache` and ``pos`` is a scalar (every row) or a
+    (B,) vector.  Returns ``(logits (B, 1, V) f32, cache)``; the token's KV
+    is written in place and the same dictionary is returned."""
     x = params["embed"][token.long()]
-    cos, sin = rope_tables(pos.long()[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        cos, sin = rope_tables(pos.long()[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    else:
+        cos, sin = rope_tables(torch.tensor([int(pos)], device=x.device),
+                               cfg.resolved_head_dim, cfg.rope_theta)
     int8_kv = cfg.kv_cache_dtype == "int8"
     for layer, (bp, w) in enumerate(zip(params["blocks"], layer_windows(cfg))):
         x = block_decode(x, bp, w, cache["k"][layer], cache["v"][layer], pos,

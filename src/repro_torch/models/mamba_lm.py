@@ -1,0 +1,222 @@
+"""Pure Mamba-2 LM (mamba2-1.3b) and the Zamba2-style hybrid (an SSM stack
+with one shared attention(+MLP) block applied every N layers), in PyTorch.
+
+Counterpart of ``repro.models.mamba_lm``.  Parameters are a plain
+dictionary with the JAX tree's names: ``embed`` (V, d), ``ln_f``, optional
+``lm_head`` (d, V), ``blocks`` (one dictionary of Mamba-2 weights per
+layer, see :func:`init_mamba_layer`) and, for the hybrid, ``shared_attn``
+(one transformer block's weights, :func:`repro_torch.models.lm.init_block_params`).
+The JAX ``lax.scan`` over stacked layers becomes a Python loop.
+
+Prefill runs each layer's SSD intra-chunk term through
+:func:`repro_torch.kernels.ssd.ops.ssd_intra` and the hybrid's shared
+attention through the flash-attention wrapper: the CUDA kernels on the
+card, their plain versions on the CPU.  Decode is the plain recurrence, and
+the hybrid's decode attention the plain masked sdpa over its dense cache,
+as in the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.attention import sdpa
+from repro_torch.models.common import (
+    ModelConfig, apply_rope, gated_mlp, init_dense, rms_norm, rope_tables,
+)
+from repro_torch.models.lm import (
+    _lm_head, _prefill_attention, _project_qkv, init_block_params,
+)
+from repro_torch.models.ssm import mamba2_block
+from repro_torch.serving import kvcache
+
+
+# ---------------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------------
+
+def init_mamba_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """One Mamba-2 layer's weights on the generator's device.  ``A_log``,
+    ``D`` and ``dt_bias`` stay float32 whatever ``cfg.dtype`` is."""
+    d = cfg.d_model
+    s = cfg.ssm
+    d_in = s.expand * d
+    h = d_in // s.head_dim
+    g, n, w = s.n_groups, s.d_state, s.conv_width
+    dev, dt = gen.device, cfg.dtype
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "ln": torch.ones((d,), dtype=dt, device=dev),
+        "w_z": init_dense(gen, (d, d_in), dt),
+        "w_x": init_dense(gen, (d, d_in), dt),
+        "w_bc": init_dense(gen, (d, 2 * g * n), dt),
+        "w_dt": init_dense(gen, (d, h), dt),
+        "conv_x": init_dense(gen, (w, d_in), dt, scale=w ** -0.5),
+        "conv_bc": init_dense(gen, (w, 2 * g * n), dt, scale=w ** -0.5),
+        "A_log": torch.zeros((h,), **f32),
+        "D": torch.ones((h,), **f32),
+        "dt_bias": torch.zeros((h,), **f32),
+        "norm": torch.ones((d_in,), dtype=dt, device=dev),
+        "out_proj": init_dense(gen, (d_in, d), dt),
+    }
+
+
+def init_params(seed: int, cfg: ModelConfig, device) -> dict:
+    """Random weights drawn from ``torch.Generator(device).manual_seed(seed)``
+    with the JAX package's std rule (its draws differ: hold the two packages
+    against each other with :func:`repro_torch.checkpoint.params_from_jax`)."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    params = {
+        "embed": init_dense(gen, (cfg.vocab, cfg.d_model), cfg.dtype, scale=0.02),
+        "blocks": [init_mamba_layer(gen, cfg) for _ in range(cfg.n_layers)],
+        "ln_f": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_dense(gen, (cfg.d_model, cfg.vocab), cfg.dtype)
+    if cfg.shared_attn_every:
+        params["shared_attn"] = init_block_params(gen, cfg)      # attn + mlp block
+    return params
+
+
+def _attn_after(cfg: ModelConfig, layer: int) -> bool:
+    """Whether the shared attention block runs after ``layer`` (the end of
+    each group of ``shared_attn_every`` layers; never after the rest)."""
+    every = cfg.shared_attn_every
+    return bool(every) and layer % every == every - 1
+
+
+def _n_attn_calls(cfg: ModelConfig) -> int:
+    return sum(_attn_after(cfg, i) for i in range(cfg.n_layers))
+
+
+# ---------------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------------
+
+def _shared_attn_forward(x, params, cos, sin, cfg: ModelConfig):
+    bp = params["shared_attn"]
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(h, bp, cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = _prefill_attention(q, k, v, -1)
+    x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
+    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    f = gated_mlp(h, bp["mlp"]["w_gate"], bp["mlp"]["w_up"], bp["mlp"]["w_down"])
+    return x + f, (k, v)
+
+
+def forward(params, batch, cfg: ModelConfig, *, collect_cache: bool = False):
+    """Full-sequence forward -> (logits (B, S, V) f32, 0.0), or with
+    ``collect_cache`` (logits, cache): ``ssm`` (L, B, h, p, n) f32 final
+    states, ``conv`` (L, B, w, C) last pre-conv inputs and, for the hybrid,
+    ``attn_k``/``attn_v`` (calls, B, S, Hkv, hd) after RoPE."""
+    x = params["embed"][batch["tokens"].long()]
+    S = x.shape[1]
+    cos = sin = None
+    if cfg.shared_attn_every:
+        cos, sin = rope_tables(torch.arange(S, device=x.device),
+                               cfg.resolved_head_dim, cfg.rope_theta)
+    sts, cvs, attn_kv = [], [], []
+    for layer, bp in enumerate(params["blocks"]):
+        y, st, cv = mamba2_block(rms_norm(x, bp["ln"], cfg.norm_eps), bp, cfg.ssm,
+                                 use_kernel=True)
+        x = x + y
+        sts.append(st)
+        cvs.append(cv)
+        if _attn_after(cfg, layer):
+            x, kv = _shared_attn_forward(x, params, cos, sin, cfg)
+            attn_kv.append(kv)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = _lm_head(params, x, cfg)
+    if not collect_cache:
+        return logits, 0.0
+    cache = {"ssm": torch.stack(sts), "conv": torch.stack(cvs)}
+    if cfg.shared_attn_every:
+        cache["attn_k"] = torch.stack([k for k, _ in attn_kv])
+        cache["attn_v"] = torch.stack([v for _, v in attn_kv])
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> dict:
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    h = d_in // s.head_dim
+    conv_ch = d_in + 2 * s.n_groups * s.d_state
+    cache = {
+        "ssm": torch.zeros((cfg.n_layers, batch, h, s.head_dim, s.d_state),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((cfg.n_layers, batch, s.conv_width, conv_ch),
+                            dtype=cfg.dtype, device=device),
+    }
+    if cfg.shared_attn_every:
+        shape = (_n_attn_calls(cfg), batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["attn_k"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        cache["attn_v"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    return cache
+
+
+def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None):
+    """Run the prompt -> (last-position logits (B, 1, V) f32, cache); the
+    hybrid's attention caches are padded to ``max_len``."""
+    logits, cache = forward(params, batch, cfg, collect_cache=True)
+    S = batch["tokens"].shape[1]
+    max_len = max_len or S
+    if cfg.shared_attn_every and max_len > S:
+        pad = (0, 0, 0, 0, 0, max_len - S)
+        cache["attn_k"] = torch.nn.functional.pad(cache["attn_k"], pad)
+        cache["attn_v"] = torch.nn.functional.pad(cache["attn_v"], pad)
+    return logits[:, -1:], cache
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig):
+    """One token per row: token (B, 1).  Returns ``(logits (B, 1, V) f32,
+    cache)``; the cache is updated in place and the same dictionary is
+    returned.
+
+    The pure SSM stack ignores ``pos``.  The hybrid's shared attention
+    takes one position for every row (an int or a 0-d tensor), as the JAX
+    ``decode_step`` does: its K/V are written at ``pos`` of the call's dense
+    cache and the query attends keys ``[0, pos]``."""
+    x = params["embed"][token.long()]
+    every = cfg.shared_attn_every
+    cos = sin = None
+    if every:
+        if torch.is_tensor(pos) and pos.dim() > 0:
+            raise ValueError("the hybrid's decode_step takes one position for all rows "
+                             "(as repro.models.mamba_lm.decode_step does), not a vector")
+        pos = int(pos)
+        ops = kvcache.DenseScalarOps(x.device)
+        cos, sin = rope_tables(torch.tensor([pos], device=x.device),
+                               cfg.resolved_head_dim, cfg.rope_theta)
+    call = 0
+    for layer, bp in enumerate(params["blocks"]):
+        h = rms_norm(x, bp["ln"], cfg.norm_eps)
+        y, st, cv = mamba2_block(h, bp, cfg.ssm, state=cache["ssm"][layer],
+                                 conv_state=cache["conv"][layer], decode=True)
+        x = x + y
+        cache["ssm"][layer] = st
+        cache["conv"][layer] = cv
+        if _attn_after(cfg, layer):
+            bpa = params["shared_attn"]
+            h = rms_norm(x, bpa["ln1"], cfg.norm_eps)
+            q, k, v = _project_qkv(h, bpa, cfg)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+            ck = ops.write(cache["attn_k"][call], k, pos)
+            cv_ = ops.write(cache["attn_v"][call], v, pos)
+            o = sdpa(q, ck, cv_, ops.mask(ck.shape[1], pos, -1))
+            x = x + o.reshape(*x.shape[:2], -1) @ bpa["wo"]
+            h2 = rms_norm(x, bpa["ln2"], cfg.norm_eps)
+            x = x + gated_mlp(h2, bpa["mlp"]["w_gate"], bpa["mlp"]["w_up"],
+                              bpa["mlp"]["w_down"])
+            call += 1
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return _lm_head(params, x, cfg), cache
+
+
+__all__ = ["init_params", "init_mamba_layer", "forward", "prefill", "decode_step",
+           "init_cache"]

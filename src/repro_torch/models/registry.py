@@ -37,33 +37,43 @@ class Model:
     device: torch.device
     init_params: Callable          # seed -> params on ``device``
     forward: Callable              # (params, batch) -> (logits, aux)
-    # (params, batch, max_len, last_idx=) -> (logits (B,1,V), cache)
+    # (params, batch, max_len, ...) -> (logits (B,1,V), cache)
     prefill: Callable
-    # (params, cache, token (B,1), pos (B,), block_table=) -> (logits, cache)
+    # (params, cache, token (B,1), pos, ...) -> (logits, cache)
     decode_step: Callable
     init_cache: Callable           # (batch, max_len) -> cache on ``device``
     # (params, cache, tokens (B,T), pos (B,), block_table=) ->
-    # (tok (B,T), lp (B,T), cache): span scoring through the fused lm-head
-    verify_step: Callable
+    # (tok (B,T), lp (B,T), cache): span scoring through the fused lm-head;
+    # None for families without the paged mixed path
+    verify_step: Callable | None = None
     supports_paged: bool = True    # decode_step takes block_table= (paged KV)
 
 
 def build_model(cfg: ModelConfig, *, device=None) -> Model:
-    if cfg.family not in ("dense", "moe"):
+    """dense/moe bind :mod:`repro_torch.models.lm` (paged, with the mixed
+    step); ssm/hybrid bind :mod:`repro_torch.models.mamba_lm`, which the
+    engine serves through its dense-cache fallback."""
+    if cfg.family in ("dense", "moe"):
+        from repro_torch.models import lm as mod
+        paged = True
+    elif cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models import mamba_lm as mod
+        paged = False
+    else:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1: "
             "other families)")
-    from repro_torch.models import lm
     dev = resolve_device(device)
     return Model(
         cfg=cfg,
         device=dev,
-        init_params=partial(lm.init_params, cfg=cfg, device=dev),
-        forward=partial(lm.forward, cfg=cfg),
-        prefill=partial(lm.prefill, cfg=cfg),
-        decode_step=partial(lm.decode_step, cfg=cfg),
-        init_cache=partial(lm.init_cache, cfg, device=dev),
-        verify_step=partial(lm.verify_step, cfg=cfg),
+        init_params=partial(mod.init_params, cfg=cfg, device=dev),
+        forward=partial(mod.forward, cfg=cfg),
+        prefill=partial(mod.prefill, cfg=cfg),
+        decode_step=partial(mod.decode_step, cfg=cfg),
+        init_cache=partial(mod.init_cache, cfg, device=dev),
+        verify_step=partial(mod.verify_step, cfg=cfg) if paged else None,
+        supports_paged=paged,
     )
 
 

@@ -1,5 +1,6 @@
-"""Single-replica serving engine over the paged KV pool: the mixed
-chunked-prefill / speculative path and the bucketed-prefill path.
+"""Single-replica serving engine: the mixed chunked-prefill / speculative
+path and the bucketed-prefill path over the paged KV pool, and the
+dense-cache fallback.
 
 Counterpart of ``repro.serving.engine`` (see its docstring).
 ``Request.score`` is the application-output signal: the running mean
@@ -17,14 +18,18 @@ feeds to the control plane's ``output_score`` channel.
   group waits at most ``bucket_max_wait`` engine steps for bucket-mates),
   then a K-step greedy decode loop advances the active slots, compacted and
   padded to a power-of-two batch.
+* **Dense-cache fallback** (``paged=False``, and the families without a
+  paged decode path: ssm): each admitted request is prefilled alone and its
+  cache installed into its slot's rows of one dense cache; every engine
+  step runs the same K-step greedy decode loop over all ``max_batch``
+  slots, idle ones computing garbage that the live mask discards.  The
+  hybrid family is refused: its reference ``decode_step`` takes one
+  position for all rows, and this loop decodes rows at their own positions.
 
 The JAX ``lax.while_loop`` of each path is a Python loop here, with one host
 sync per iteration (``live.any()``) so the loop exits as early as the
 reference's and ``step_count`` stays equal to it.  Per-row state stays on
 the device between iterations.
-
-Not ported yet (ROADMAP.md Queue 1): the dense-cache fallback
-(``paged=False``).
 """
 from __future__ import annotations
 
@@ -81,7 +86,7 @@ class ServeConfig:
     max_batch: int = 8
     max_len: int = 1024
     eos_token: int = -1                # -1: run to max_new_tokens
-    paged: bool = True                 # only the paged cache is ported
+    paged: bool = True                 # paged KV cache (attention families)
     page_size: int | None = None       # None: per-device default (autotune)
     num_pages: int | None = None       # default: max_batch*(max_len/ps) + trash
     decode_steps: int = 8              # loop iterations per host round trip
@@ -113,10 +118,14 @@ class ServingEngine:
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} != model device "
                              f"{model.device}")
-        if not (cfg.paged and model.supports_paged):
+        self.paged = cfg.paged and model.supports_paged
+        if not self.paged and model.cfg.family == "hybrid":
             raise NotImplementedError(
-                "only the paged KV cache is ported; the dense-cache fallback "
-                "(paged=False) is a ROADMAP.md Queue 1 item")
+                "the dense-cache engine cannot serve the hybrid family: its "
+                "decode_step takes one position for all rows (as "
+                "repro.models.mamba_lm.decode_step does), while the engine decodes "
+                "each row at its own position; the reference engine fails the "
+                "same way (ROADMAP.md Queue 3, reference caveats)")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -136,7 +145,8 @@ class ServingEngine:
         self._bucket_stats: dict[int, list] = {}   # bucket -> [rows, width]
         self._bucket_first_wait: dict[int, int] = {}   # bucket -> first defer step
         self._clock = 0                            # ticks every step() call
-        self.chunked = bool(cfg.chunked_prefill)
+        self.chunked = (self.paged and cfg.chunked_prefill
+                        and model.verify_step is not None)
         dev = self.device.type
         if self.chunked:
             chunk = cfg.chunk_size or autotune.default_chunk_size(dev)
@@ -152,10 +162,14 @@ class ServingEngine:
             self.proposer = None
         self._mixed_emitted = 0                    # tokens emitted by mixed loop
         self._mixed_live_iters = 0                 # live-row loop iterations
-        page_size = cfg.page_size or autotune.default_page_size(dev)
-        self.kv = PagedKVCache(model.init_cache, max_batch=cfg.max_batch,
-                               max_len=cfg.max_len, page_size=page_size,
-                               num_pages=cfg.num_pages)
+        if self.paged:
+            page_size = cfg.page_size or autotune.default_page_size(dev)
+            self.kv = PagedKVCache(model.init_cache, max_batch=cfg.max_batch,
+                                   max_len=cfg.max_len, page_size=page_size,
+                                   num_pages=cfg.num_pages)
+        else:
+            self.kv = None
+            self.cache = None                      # dense cache, built at first install
 
     # -- the bucketed path: prefill and the K-step decode loop ------------------------
 
@@ -175,10 +189,11 @@ class ServingEngine:
     def _decode_loop(self, kv, toks, pos, rem, live, n_steps: int, step_fn):
         """Up to ``n_steps`` greedy decode steps on the device.
 
-        Carried state: the KV pages (written in place), last tokens (na, 1),
-        per-row positions / remaining budgets, the live mask (rows park when
-        their budget runs out or they emit eos -- their KV writes keep
-        landing in pages they still own, or in the trash page, harmlessly),
+        Carried state: the KV storage (the paged pool or the dense cache,
+        written in place), last tokens (na, 1), per-row positions / remaining
+        budgets, the live mask (rows park when their budget runs out or they
+        emit eos -- their KV writes keep landing in storage they still own,
+        or in the trash page, harmlessly),
         the emitted-token buffer and running logprob sums.  The loop exits
         early once every row parks."""
         K = self.decode_steps
@@ -216,6 +231,22 @@ class ServingEngine:
             pages, toks, pos, rem, live, n_steps,
             lambda kv, tk, ps: self.model.decode_step(self.params, kv, tk, ps,
                                                       block_table=tbl))
+
+    # -- the dense-cache fallback --------------------------------------------------
+
+    def _dense_prefill_fn(self, batch):
+        """One request's prefill -> (greedy first token, its logprob, the
+        request's cache with batch dim 1)."""
+        logits, cache1 = self.model.prefill(self.params, batch, max_len=self.cfg.max_len)
+        tok, lp = greedy_epilogue(logits[:, -1])
+        return tok[0], lp[0], cache1
+
+    def _dense_decode_fn(self, cache, toks, pos, rem, live, n_steps: int):
+        """K-step decode loop over the full dense cache -- idle slots compute
+        garbage that the live mask discards."""
+        return self._decode_loop(
+            cache, toks, pos, rem, live, n_steps,
+            lambda kv, tk, ps: self.model.decode_step(self.params, kv, tk, ps))
 
     # -- the mixed step -------------------------------------------------------------
 
@@ -316,7 +347,7 @@ class ServingEngine:
                 f"request {req.rid}: prompt {len(req.prompt)} + "
                 f"{req.max_new_tokens} new tokens needs {total} cache slots "
                 f"> max_len {self.cfg.max_len}")
-        if self.kv.pages_needed(total) > self.kv.num_pages - 1:
+        if self.paged and self.kv.pages_needed(total) > self.kv.num_pages - 1:
             raise ValueError(
                 f"request {req.rid} needs more pages than the pool holds")
         self.queue.append(req)
@@ -352,7 +383,7 @@ class ServingEngine:
     # -- slot lifecycle -----------------------------------------------------------
     def _reset_slot(self, slot: int) -> None:
         """Release a slot's pages and reservation, zero its registers."""
-        if self.kv.held[slot] or self.kv.worst[slot]:
+        if self.paged and (self.kv.held[slot] or self.kv.worst[slot]):
             self.kv.release(slot)
         self.pos[slot] = 0
         self.remaining[slot] = 0
@@ -469,6 +500,19 @@ class ServingEngine:
                                               int(tokv[j]), float(lpv[j]), now)
         return fill_done
 
+    def _dense_prefill_into(self, slot: int, req: Request, install: bool):
+        """Dense path: one prefill per request, its cache installed into the
+        slot's rows of the dense cache (batch dim 1 of every leaf)."""
+        prompt = torch.from_numpy(np.asarray(req.prompt, np.int64)).to(self.device)
+        tok, logp, cache1 = self._dense_prefill_fn({"tokens": prompt[None]})
+        if install:
+            if self.cache is None:
+                self.cache = {k: c.new_zeros((c.shape[0], self.cfg.max_batch) + c.shape[2:])
+                              for k, c in cache1.items()}
+            for k, full in self.cache.items():
+                full[:, slot] = cache1[k][:, 0]
+        return int(tok), float(logp)
+
     def _prefill_bucket(self, req: Request) -> int:
         # bucket >= page_size so the padded prompt is a whole number of
         # page chunks (both are powers of two; max_len is page-aligned)
@@ -487,10 +531,11 @@ class ServingEngine:
         slot cap bounds prefill work exactly like decode work."""
         limit = min(self.slot_limit, self.cfg.max_batch)
         free = [s for s in range(self.cfg.max_batch) if s not in self.active]
-        # reclaim pages of slots that were force-popped without release()
-        for s in free:
-            if self.kv.held[s] or self.kv.worst[s]:
-                self._reset_slot(s)
+        if self.paged:
+            # reclaim pages of slots that were force-popped without release()
+            for s in free:
+                if self.kv.held[s] or self.kv.worst[s]:
+                    self._reset_slot(s)
         fill_done = 0
         while free and self.queue and len(self.active) + fill_done < limit:
             req = self.queue[0]
@@ -499,6 +544,15 @@ class ServingEngine:
                 self.queue.pop(0)
                 req.done_s = now
                 self.completed.append(req)
+                continue
+            if not self.paged:
+                install = req.max_new_tokens > 1
+                self.queue.pop(0)
+                slot = free.pop(0)
+                tok, logp = self._dense_prefill_into(slot, req, install)
+                self._prefill_rows += 1            # dense fills one at a time
+                self._prefill_width += 1
+                fill_done += self._note_prefilled(slot, req, install, tok, logp, now)
                 continue
             if self.chunked:
                 total = len(req.prompt) + req.max_new_tokens - 1
@@ -681,6 +735,31 @@ class ServingEngine:
                                    n_emit, pos_out, rem_out, now)
         return n, int(iters)
 
+    def _decode_all_dense(self, now: float, k: int = 1) -> tuple[int, int]:
+        """Dense fallback: up to ``k`` batched decode steps over every slot of
+        the dense cache (idle slots compute garbage that is discarded).
+        Returns (slots served, device steps executed)."""
+        slots = sorted(self.active)
+        if not slots:
+            return 0, 0                  # guard: empty active set
+        na = self.cfg.max_batch
+        toks = np.zeros((na, 1), np.int64)
+        livev = np.zeros((na,), bool)
+        for slot, req in self.active.items():
+            toks[slot, 0] = req.output[-1]
+            livev[slot] = True
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(a).to(dev)
+
+        self.cache, out_toks, lp_sum, n_emit, pos_out, rem_out, iters = \
+            self._dense_decode_fn(self.cache, put(toks), put(self.pos.astype(np.int64)),
+                                  put(self.remaining.astype(np.int64)), put(livev), k)
+        self._apply_decode_outputs([(s, s) for s in slots], out_toks, lp_sum, n_emit,
+                                   pos_out, rem_out, now)
+        return len(slots), int(iters)
+
     def step(self, now: float | None = None, *,
              decode_steps: int | None = None) -> int:
         """One engine step: refill + one batched device loop over the active
@@ -703,8 +782,10 @@ class ServingEngine:
             return fill_done
         if self.chunked:
             served, iters = self._decode_active_mixed(now, k)
-        else:
+        elif self.paged:
             served, iters = self._decode_active_paged(now, k)
+        else:
+            served, iters = self._decode_all_dense(now, k)
         self.step_count += max(iters, 1)
         return served + fill_done
 

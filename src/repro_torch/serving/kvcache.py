@@ -1,5 +1,5 @@
-"""Paged KV cache: block-table storage + the cache ops both serving paths
-run on.
+"""Paged KV cache: block-table storage + the cache ops the serving paths
+run on (paged, and the dense ``(B, S_max, ...)`` cache of ``paged=False``).
 
 Counterpart of ``repro.serving.kvcache`` (see its docstring for the pool's
 free-list discipline).  The serving engine's KV memory is a pool of
@@ -135,6 +135,48 @@ def _span_mask(seq_len: int, pos: torch.Tensor, q_len: int,
     if window > 0:
         valid &= k_pos[None, None, :] > q_pos[:, :, None] - window
     return valid
+
+
+@dataclass
+class DenseScalarOps:
+    """Uniform-position dense cache (B, S_max, *rest): every row writes at
+    the same position ``pos`` (an int or a 0-d tensor), in place.  ``device``
+    places the mask (a scalar position carries none)."""
+
+    device: torch.device | None = None
+
+    def write(self, cache, new, pos):
+        # a start past the end is clamped as lax.dynamic_update_slice does
+        p = min(int(pos), cache.shape[1] - 1)
+        cache[:, p] = new[:, 0].to(cache.dtype)
+        return cache
+
+    def view(self, cache):
+        return cache
+
+    def mask(self, seq_len, pos, window):
+        k_pos = torch.arange(seq_len, device=self.device)
+        valid = k_pos < int(pos) + 1
+        if window > 0:
+            valid &= k_pos > int(pos) - window
+        return valid[None, :]                                          # (Sq=1, S)
+
+
+class DenseVectorOps:
+    """Heterogeneous-position dense cache (B, S_max, *rest): row b writes at
+    ``pos[b]``, in place."""
+
+    def write(self, cache, new, pos):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        p = pos.long().to(cache.device).clamp(max=cache.shape[1] - 1)
+        cache[rows, p] = new[:, 0].to(cache.dtype)
+        return cache
+
+    def view(self, cache):
+        return cache
+
+    def mask(self, seq_len, pos, window):
+        return _vector_mask(seq_len, pos, window)
 
 
 @dataclass
@@ -333,4 +375,5 @@ class PagedKVCache:
 
 
 __all__ = ["TRASH_PAGE", "paged_update", "paged_update_span", "paged_gather",
-           "write_prefill_pages", "PagedOps", "PagedKVCache"]
+           "write_prefill_pages", "DenseScalarOps", "DenseVectorOps", "PagedOps",
+           "PagedKVCache"]

@@ -54,6 +54,43 @@ def smoke_pair(arch: str, *, kv: str = "native", seed: int = 0):
     return jc, tc, jm, jp, params_from_jax(flatten_jax(jp))
 
 
+def jax_tree_from_torch(params):
+    """The JAX parameter tree of a port's parameter dictionary: the
+    per-layer ``blocks`` dictionaries stacked on a leading layer dim, every
+    leaf a jnp array (the inverse of ``params_from_jax``)."""
+    import jax.numpy as jnp
+
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([layer[k] for layer in layers]) for k in first}
+        return jnp.asarray(torch.stack(layers).numpy())
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return jnp.asarray(tree.numpy())
+
+    return {k: (stack(v) if k == "blocks" else conv(v)) for k, v in params.items()}
+
+
+def torch_pair(arch: str, *, kv: str = "native", seed: int = 0):
+    """As :func:`smoke_pair`, with the weights drawn by the port (seeded
+    torch init at float32) and carried into a JAX tree, which skips the
+    JAX package's init: (jax cfg, torch cfg, jax model, jax params, torch
+    params)."""
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import build_model
+    from repro_torch.models import build_model as torch_build_model
+    jc = dataclasses.replace(jax_smoke_config(arch), dtype=jnp.float32,
+                             kv_cache_dtype=kv)
+    tc = dataclasses.replace(torch_smoke_config(arch), dtype=torch.float32,
+                             kv_cache_dtype=kv)
+    tp = torch_build_model(tc, device="cpu").init_params(seed)
+    return jc, tc, build_model(jc), jax_tree_from_torch(tp), tp
+
+
 def mixed_inputs(group, int8, *, B=3, T=4, Hkv=2, D=8, ps=4, n=6, seed=0):
     """Pool with heterogeneous row starts; table entries past each row's live
     pages point at page 0, which holds garbage that must never be read."""
@@ -112,3 +149,37 @@ def logits_inputs(kind, B=5, V=999, seed=6):
     x[0, 3] = x[0, 500] = x[0, 997] = 9.0
     x[1, 998] = x[1, 0] = 9.0
     return x
+
+
+def ssd_inputs(b=1, nc=2, q=16, h=4, p=8, n=8, groups=1, seed=3):
+    """SSD intra-chunk inputs in the model layout, float32: xb (b, nc, q, h, p),
+    acs (b, nc, q, h) a decreasing cumulative log-decay as ssd_chunked makes
+    it, and the group tensors Bq/Cq (b, nc, q, groups, n); the per-head
+    Bh/Ch repeat each group over h // groups heads (jnp.repeat's order)."""
+    rng = np.random.default_rng(seed)
+    xb = rng.normal(size=(b, nc, q, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b, nc, q, h))))
+    A = -np.exp(rng.normal(size=(h,)) * 0.3)
+    acs = np.cumsum(A * dt, axis=2).astype(np.float32)
+    Bq = rng.normal(size=(b, nc, q, groups, n)).astype(np.float32)
+    Cq = rng.normal(size=(b, nc, q, groups, n)).astype(np.float32)
+    return xb, acs, Bq, Cq
+
+
+def dense_decode_inputs(B, S, Hq, Hkv, D, seed=4):
+    """q1 (B, 1, Hq, D) and dense caches (B, S, Hkv, D), float32."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, 1, Hq, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+
+
+# (B, S, Hq, Hkv, D, pos, window): the six shapes of tests/test_kernels.py
+DENSE_DECODE_SHAPES = [
+    (2, 512, 8, 2, 64, 300, None),
+    (1, 1024, 4, 4, 128, 1000, None),
+    (2, 512, 8, 2, 64, 400, 128),
+    (1, 256, 8, 1, 64, 17, None),       # pos not block-aligned
+    (2, 384, 8, 2, 64, 201, 96),        # GQA + window + partial, unaligned
+    (1, 256, 6, 3, 32, 250, 300),       # window wider than the filled cache
+]

@@ -13,16 +13,19 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention_mixed, decode_attention_paged, paged_decode_attention_plain,
-    paged_mixed_attention_plain,
+    decode_attention, decode_attention_mixed, decode_attention_paged,
+    decode_attention_plain, paged_decode_attention_plain, paged_mixed_attention_plain,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
 from repro_torch.kernels.sampling.ops import (
     fused_lmhead_greedy, greedy_epilogue, greedy_epilogue_plain, lmhead_greedy_plain,
 )
+from repro_torch.kernels.ssd.ops import ssd_intra, ssd_intra_plain
+from repro_torch.models.attention import mha_decode
 
 from _torch_helpers import (
-    flash_inputs, lmhead_inputs, logits_inputs, mixed_inputs, require_cuda, tree_to,
+    DENSE_DECODE_SHAPES, dense_decode_inputs, flash_inputs, lmhead_inputs, logits_inputs,
+    mixed_inputs, require_cuda, ssd_inputs, tree_to,
 )
 
 
@@ -222,3 +225,123 @@ def test_engine_on_card_matches_cpu():
            {r: o for r, (o, _) in outs["cpu"].items()}
     for rid, (_, score) in outs["cpu"].items():
         assert abs(outs["cuda"][rid][1] - score) < 1e-4
+
+
+# ---------------------------------------------------------------------------------
+# the ssm path: the SSD intra-chunk kernel and the dense decode-attention kernel
+# ---------------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [True, False])
+@pytest.mark.parametrize("b,nc,q,h,p,n,groups", [
+    (1, 2, 256, 4, 64, 128, 1),      # mamba2-1.3b chunk and state widths
+    (1, 1, 256, 64, 64, 128, 1),     # a mamba2-1.3b prefill of <= 256 tokens
+    (2, 3, 40, 4, 16, 16, 2),        # ragged tiles, two groups
+    (1, 2, 8, 8, 16, 16, 1),         # the smoke configs' chunk
+    (1, 1, 130, 2, 96, 40, 1),       # p over one tile, n over one slice
+])
+def test_ssd_intra_kernel_matches_plain(b, nc, q, h, p, n, groups, view):
+    """Against the plain version at f32, with Bh/Ch materialised by
+    repeat_interleave or, for one group, an expand view (zero head stride).
+    Tolerance: 1e-5 of the output's largest magnitude (f32 sums over up to
+    q * n products in another order)."""
+    dev = require_cuda()
+    xb, acs, Bq, Cq = (torch.from_numpy(a).to(dev)
+                       for a in ssd_inputs(b, nc, q, h, p, n, groups))
+    rep = h // groups
+    if view and groups == 1:
+        Bh, Ch = Bq.expand(b, nc, q, h, n), Cq.expand(b, nc, q, h, n)
+    else:
+        Bh, Ch = Bq.repeat_interleave(rep, dim=3), Cq.repeat_interleave(rep, dim=3)
+    before = ssd_intra.launches
+    out = ssd_intra(xb, acs, Bh, Ch)
+    torch.cuda.synchronize()
+    assert ssd_intra.launches == before + 1
+    ref = ssd_intra_plain(xb, acs, Bh, Ch)
+    assert torch.isfinite(out).all()
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(out, ref, atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,pos,window", DENSE_DECODE_SHAPES + [
+    (2, 300, 32, 32, 80, 200, None),     # zamba2's shared attention: D = 80
+    (2, 1500, 8, 4, 256, 1300, 1024),    # gemma3's local layers
+    (2, 64, 4, 2, 16, 1, None),          # one visible key
+    (2, 64, 4, 2, 16, 0, None),          # none: zeros
+    (3, 100, 4, 4, 128, 100, 7),
+])
+def test_dense_decode_kernel_matches_plain(dtype, B, S, Hq, Hkv, D, pos, window):
+    dev = require_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dev, dt) for a in dense_decode_inputs(B, S, Hq, Hkv, D))
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_plain(q, k, v, pos, window=window or -1)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype), rtol=_tol(dtype))
+    if pos == 0:
+        assert not out.any()
+    # mha_decode reaches the kernel with use_kernel, the masked sdpa without
+    plain = mha_decode(q, k, v, pos, window=window)
+    if pos > 0:
+        torch.testing.assert_close(mha_decode(q, k, v, pos, window=window, use_kernel=True)
+                                   .float(), plain.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cadence", [1, 8])
+def test_mamba_engine_on_card_matches_cpu(cadence):
+    """mamba2-smoke at float32 through the dense-cache engine: identical
+    tokens, step counts and completion order from the SSD kernel on the
+    card and the plain version on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    require_cuda()
+    cfg = dataclasses.replace(get_smoke_config("mamba2-1.3b"), dtype=torch.float32)
+    cpu_params = build_model(cfg, device="cpu").init_params(0)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        eng = ServingEngine(build_model(cfg, device=where), tree_to(cpu_params, where),
+                            ServeConfig(max_batch=4, max_len=64), device=where)
+        rng = np.random.default_rng(1)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(4, 40))),
+                               max_new_tokens=int(rng.integers(1, 16))))
+        before = ssd_intra.launches
+        while eng.queue or eng.active:
+            eng.step(now=0.0, decode_steps=cadence)
+        if where == "cuda":
+            assert ssd_intra.launches - before == cfg.n_layers * eng._prefill_rows
+        runs[where] = ([(r.rid, r.output) for r in eng.completed], eng.step_count,
+                       {r.rid: r.score for r in eng.completed})
+    assert runs["cuda"][:2] == runs["cpu"][:2]
+    for rid, score in runs["cpu"][2].items():
+        assert abs(runs["cuda"][2][rid] - score) < 1e-4
+
+
+@pytest.mark.cuda
+def test_zamba_model_on_card_matches_cpu():
+    """zamba2-smoke at float32, model level (the engine refuses the hybrid):
+    prefill then four decode steps at one scalar position, identical greedy
+    tokens on the card and the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    require_cuda()
+    cfg = dataclasses.replace(get_smoke_config("zamba2-2.7b"), dtype=torch.float32)
+    cpu_params = build_model(cfg, device="cpu").init_params(0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, 21)))
+    toks = {}
+    for where in ("cpu", "cuda"):
+        model = build_model(cfg, device=where)
+        params = tree_to(cpu_params, where)
+        logits, cache = model.prefill(params, {"tokens": tokens.to(where)}, max_len=32)
+        out = [logits[:, 0].argmax(-1)]
+        for i in range(4):
+            logits, cache = model.decode_step(params, cache, out[-1][:, None], 21 + i)
+            out.append(logits[:, 0].argmax(-1))
+        toks[where] = torch.stack(out, 1).cpu()
+    assert torch.equal(toks["cuda"], toks["cpu"])

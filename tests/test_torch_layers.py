@@ -102,6 +102,39 @@ def test_jax_checkpoint_carries_across_bit_exact(tmp_path):
     assert params["blocks"][1]["bq"].shape == (cfg.n_heads * cfg.resolved_head_dim,)
 
 
+@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-2.7b"])
+def test_params_from_jax_nests_every_path_and_keeps_f32_leaves(tmp_path, arch):
+    """A bf16 JAX checkpoint carried across: every ``/``-separated path nests
+    (``shared_attn/mlp/w_gate`` -> params["shared_attn"]["mlp"]["w_gate"],
+    not a flat key), values bit-exact; and with ``dtype=`` the leaves the JAX
+    package keeps in float32 (A_log, D, dt_bias) stay float32."""
+    from repro.models import build_model as jax_build
+    import jax
+    from repro_torch.checkpoint import F32_LEAVES
+    jp = jax_build(jax_smoke_config(arch)).init_params(jax.random.key(4))
+    ref = flatten_jax(jp)
+    flat = load_jax_npz(save_checkpoint(str(tmp_path / "ckpt_00000001.npz"), jp, step=1))
+    for dtype in (None, torch.bfloat16, torch.float32):
+        params = params_from_jax(flat, dtype=dtype)
+        assert not any("/" in key for key in params)
+        for key, a in ref.items():
+            names = key.split("/")
+            node = params["blocks"][1] if names[0] == "blocks" else params
+            for name in names[1:] if names[0] == "blocks" else names:
+                node = node[name]
+            want = a[1] if names[0] == "blocks" else a
+            if names[-1] in F32_LEAVES or dtype is None:
+                assert node.dtype == flat[key].dtype, key        # as stored
+            else:
+                assert node.dtype == dtype, key
+            np.testing.assert_array_equal(node.float().numpy(),
+                                          np.asarray(want, np.float32), err_msg=key)
+    if arch == "zamba2-2.7b":
+        params = params_from_jax(flat, dtype=torch.bfloat16)
+        assert params["shared_attn"]["mlp"]["w_gate"].dtype == torch.bfloat16
+        assert params["blocks"][0]["A_log"].dtype == torch.float32
+
+
 def test_params_from_jax_matches_tree():
     _, tc, _, jp, tp = smoke_pair("gemma3-4b")
     assert len(tp["blocks"]) == tc.n_layers

@@ -294,10 +294,16 @@ def test_engine_eos_stops_row():
 
 
 def test_engine_device_rule_and_unported_paths(monkeypatch):
+    """The device rule, and what each path refuses.  ``paged=False`` was
+    refused until the dense-cache fallback was ported; now it builds and
+    drains (its parity with the JAX engine is in test_torch_dense_cache.py)."""
     _, tc, _, _, tp = smoke_pair("smollm-135m")
     tm = build_model(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="paged=False"):
-        ServingEngine(tm, tp, ServeConfig(paged=False), device="cpu")
+    dense = ServingEngine(tm, tp, ServeConfig(max_len=64, paged=False), device="cpu")
+    assert dense.kv is None and not dense.chunked
+    dense.submit(Request(rid=0, prompt=np.arange(5, dtype=np.int32), max_new_tokens=4))
+    dense.run_until_drained()
+    assert len(dense.completed[0].output) == 4
     bucketed = ServingEngine(tm, tp, ServeConfig(max_len=64, chunked_prefill=False),
                              device="cpu")
     with pytest.raises(RuntimeError, match="migration"):
