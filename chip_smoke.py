@@ -7,12 +7,16 @@ Phases, each of which fails the run if it fails:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build every hand-written CUDA kernel from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
+   with ``nvcc`` for ``sm_90a`` (one process per source, in parallel); print
+   each kernel's registers and spills, and the HMMA (tensor-core) count in
+   the SASS of the two attention libraries with bf16 tensor-core bodies;
 3. hold each kernel against its plain PyTorch version at the serving
    shapes of smollm-135m (the SSD intra-chunk kernel at mamba2-1.3b's
    prefill shape, the dense decode-attention kernel at zamba2-2.7b's shared
-   attention), and time the kernel, the plain version and a PyTorch library
-   yardstick beside the least time the card could take;
+   attention; the two attention kernels also at qwen2.5-3b's, gemma3-4b's
+   and zamba2-2.7b's head shapes), and time the kernel, the plain version
+   and a PyTorch library yardstick beside the least time the card could
+   take;
 4. small end-to-end references: the smoke config at float32 served on the
    card (kernels) and on the CPU (plain versions) must emit identical
    tokens, on the chunked path and on the bucketed-prefill path; likewise
@@ -36,6 +40,9 @@ Phases, each of which fails the run if it fails:
 5d. ``attention.mha_decode(use_kernel=True)``, the dense decode-attention
    kernel's only entry point, over eight decode positions at zamba2-2.7b's
    shared-attention shape, each step against the plain route;
+5e. zamba2-2.7b at full width at model level: bf16 ``prefill`` of four
+   512-token prompts (9 flash launches at head dim 80, 54 SSD launches),
+   four decode steps, finite logits; wall, device time and peak memory;
 6. the paper's loop on that model: ``ServeBackend`` with the ``appdata``
    policy over a seeded bursty request stream; 6b. the same on the
    mamba2-1.3b engine;
@@ -66,10 +73,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+HOLD_CYCLES = 1_000_000         # ~0.5 ms of spinning at the H100's clocks
+
+
 def timed_ms(fn, *, reps: int = 20, flush=None) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls, from CUDA events
     around each call; ``flush()`` (not timed) evicts the L2 cache before
-    each call, as the serving loop finds it after the other layers ran."""
+    each call, as the serving loop finds it after the other layers ran.  A
+    spin kernel (``torch.cuda._sleep``) holds the stream before the start
+    event, so the host has enqueued ``fn``'s kernels before the clock
+    starts: the time is the device's, not the host's enqueue time."""
     import torch
     for _ in range(3):
         fn()
@@ -77,6 +90,7 @@ def timed_ms(fn, *, reps: int = 20, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -85,6 +99,31 @@ def timed_ms(fn, *, reps: int = 20, flush=None) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def device_us(fn, *, reps: int = 20, flush=None) -> str:
+    """Mean device time of each kernel that ``fn()`` launches, from
+    torch.profiler over ``reps`` calls (each after ``flush()``), as
+    "name us; ..." with names cut to 40 characters; the flush's own fill
+    kernel is left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / reps) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and "FillFunctor" not in e.key and "Memset" not in e.key]
+    if not rows:
+        return "not measured (the profiler reported no device time)"
+    return "; ".join(f"{k.replace('void ', '').replace('(anonymous namespace)::', '')[:40]} "
+                     f"{us:.2f} us" for k, us in rows)
 
 
 def bound_ms(n_bytes: float, flops: float,
@@ -103,67 +142,140 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """``name<template args>`` of a mangled kernel symbol, e.g.
+    ``flash_attention_bf16_kernel<Li80E>`` (Itanium ABI: a name is its
+    length, then its characters; template arguments follow in I .. E)."""
+    for i in range(len(mangled)):              # a length may follow other digits
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        if j == i:
+            continue
+        name = mangled[j:j + int(mangled[i:j])]
+        if name.endswith("_kernel") and name[0].isalpha():
+            rest = mangled[j + len(name):]
+            args = rest[1:rest.index("EE") + 1] if rest.startswith("I") and "EE" in rest else ""
+            return f"{name}<{args}>" if args else name
+    return mangled[:64]
+
+
+def ptxas_report(log_text: str):
+    """(kernel, "N registers, ... spill ...") for each entry function in an
+    ``nvcc -Xptxas -v`` log."""
+    fn, spill = "?", ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            fn, spill = kernel_name(line.split("'")[1]), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            yield fn, f"{line.split('Used', 1)[1].strip()}; {spill}"
+
+
+def hmma_count(lib: Path) -> str:
+    """The number of HMMA (tensor-core) instructions in a library's SASS,
+    from ``cuobjdump -sass``; a missing tool is reported as such."""
+    import shutil
+    tool = next((str(p) for p in (Path("/usr/local/cuda/bin/cuobjdump"),) if p.exists()),
+                shutil.which("cuobjdump"))
+    if tool is None:
+        return "HMMA count not read (no cuobjdump)"
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        return f"HMMA count not read (cuobjdump exit {res.returncode})"
+    n = sum(1 for line in res.stdout.splitlines() if "HMMA" in line)
+    return f"{n} HMMA instructions in the SASS (cuobjdump -sass)"
+
+
 # ---------------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------------
 
-def check_attention(dev, flush) -> dict:
-    """paged mixed attention at the serving shapes of smollm-135m: 8 rows of
-    16 queries, 9 query / 3 kv heads of 64, 16-token pages, 64 pages a row,
-    mixed starts up to 1000; bf16 and int8 pages, window -1 and 64."""
+def paged_inputs(dev, B, T, Hq, Hkv, D, ps, n, starts, seed):
+    """A paged pool (trash page 0 full of garbage that must never be read),
+    a shuffled block table with dead entries on page 0, f32 and int8 pages
+    with their scales, and f32 queries."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import (
-        decode_attention_mixed, paged_mixed_attention_plain)
-    from repro_torch.serving.kvcache import _span_mask, paged_gather
-
-    B, T, Hq, Hkv, D, ps, n = 8, 16, 9, 3, 64, 16, 64
     P = B * n + 1
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    starts = torch.tensor([0, 17, 130, 255, 511, 640, 893, 1000], dtype=torch.int32,
-                          device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    starts = torch.tensor(starts, dtype=torch.int32, device=dev)
     perm = torch.randperm(P - 1, generator=g, device=dev).to(torch.int32) + 1
-    tbl = torch.zeros((B, n), dtype=torch.int32, device=dev)   # dead entries: page 0
+    tbl = torch.zeros((B, n), dtype=torch.int32, device=dev)
     n_live = [-(-(int(s) + T) // ps) for s in starts.tolist()]
     for b in range(B):
         tbl[b, :n_live[b]] = perm[b * n:b * n + n_live[b]]
     q = torch.randn((B, T, Hq, D), generator=g, device=dev)
     kf = torch.randn((P, ps, Hkv, D), generator=g, device=dev)
     vf = torch.randn((P, ps, Hkv, D), generator=g, device=dev)
-    kf[0] = vf[0] = 1e3                                        # trash-page garbage
-    k8 = torch.randint(-127, 128, (P, ps, Hkv, D), generator=g, device=dev,
-                       dtype=torch.int8)
-    v8 = torch.randint(-127, 128, (P, ps, Hkv, D), generator=g, device=dev,
-                       dtype=torch.int8)
+    kf[0] = vf[0] = 1e3
+    k8 = torch.randint(-127, 128, (P, ps, Hkv, D), generator=g, device=dev, dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (P, ps, Hkv, D), generator=g, device=dev, dtype=torch.int8)
     k8[0] = v8[0] = 127
     ks = torch.rand((P, ps, Hkv, 1), generator=g, device=dev) * 0.02 + 1e-3
     vs = torch.rand((P, ps, Hkv, 1), generator=g, device=dev) * 0.02 + 1e-3
+    return {"float32": (q, kf, vf, {}),
+            "bfloat16": (q.bfloat16(), kf.bfloat16(), vf.bfloat16(), {}),
+            "int8": (q.bfloat16(), k8, v8, {"k_scale": ks, "v_scale": vs})}, tbl, starts, n_live
 
-    variants = {
-        "float32": (q, kf, vf, {}),
-        "bfloat16": (q.bfloat16(), kf.bfloat16(), vf.bfloat16(), {}),
-        "int8": (q.bfloat16(), k8, v8, {"k_scale": ks, "v_scale": vs}),
-    }
+
+def check_attention(dev, flush) -> dict:
+    """paged mixed attention at the serving shapes of smollm-135m: 8 rows of
+    16 queries, 9 query / 3 kv heads of 64, 16-token pages, 64 pages a row,
+    mixed starts up to 1000; f32, bf16 and int8 pages, window -1 and 64;
+    and, for correctness only, qwen2.5-3b's heads (16 / 2 of 128), also at
+    32-query chunks (256 query rows a kv head: the bf16 kernel's row tiles),
+    and gemma3-4b's local layers (8 / 4 of 256, window 1024, a 128-page
+    table so the window bites)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        _sm_count, choose_pages_per_split, decode_attention_mixed,
+        paged_mixed_attention_plain)
+    from repro_torch.serving.kvcache import _span_mask, paged_gather
+
+    B, T, Hq, Hkv, D, ps, n = 8, 16, 9, 3, 64, 16, 64
+    variants, tbl, starts, n_live = paged_inputs(
+        dev, B, T, Hq, Hkv, D, ps, n, [0, 17, 130, 255, 511, 640, 893, 1000], SEED)
+    cases = [("smollm-135m", variants, tbl, starts, (-1, 64), ("float32", "bfloat16", "int8"))]
+    qwen = paged_inputs(dev, 8, 16, 16, 2, 128, 16, 64,
+                        [0, 17, 130, 255, 511, 640, 893, 1000], SEED + 12)
+    cases.append(("qwen2.5-3b", qwen[0], qwen[1], qwen[2], (-1,),
+                  ("float32", "bfloat16", "int8")))
+    gemma = paged_inputs(dev, 8, 16, 8, 4, 256, 16, 128,
+                         [0, 17, 130, 255, 1100, 1500, 1893, 2000], SEED + 13)
+    cases.append(("gemma3-4b local", gemma[0], gemma[1], gemma[2], (1024,),
+                  ("float32", "bfloat16", "int8")))
+    # 32-token chunks on qwen2.5-3b: 256 query rows a kv head, two row tiles
+    chunk32 = paged_inputs(dev, 8, 32, 16, 2, 128, 16, 64,
+                           [0, 17, 130, 255, 511, 640, 893, 992], SEED + 18)
+    cases.append(("qwen2.5-3b chunk 32", chunk32[0], chunk32[1], chunk32[2], (-1, 100),
+                  ("float32", "bfloat16", "int8")))
     errs = {}
-    for name, (qq, kk, vv, sc) in variants.items():
-        for window in (-1, 64):
-            args = (qq, kk, vv, tbl, starts)
-            out = decode_attention_mixed(*args, window=window, **sc)
-            torch.cuda.synchronize()
-            ref = paged_mixed_attention_plain(*args, window=window, **sc)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = 1e-4 if name == "float32" else 2e-2
-            log(f"[kernels] paged_mixed_attention {name} window={window}: "
-                f"max |kernel - plain| = {err:.3e} (tol {tol})")
-            if not (err <= tol and torch.isfinite(out).all()):
-                raise AssertionError(f"paged_mixed_attention {name} window={window} "
-                                     f"disagrees with its plain version: {err}")
-            errs[(name, window)] = err
+    for shape, var, tb, st, windows, names in cases:
+        for name in names:
+            qq, kk, vv, sc = var[name]
+            for window in windows:
+                args = (qq, kk, vv, tb, st)
+                out = decode_attention_mixed(*args, window=window, **sc)
+                torch.cuda.synchronize()
+                ref = paged_mixed_attention_plain(*args, window=window, **sc)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = 1e-4 if name == "float32" else 2e-2
+                log(f"[kernels] paged_mixed_attention {shape} {name} window={window}: "
+                    f"max |kernel - plain| = {err:.3e} (tol {tol})")
+                if not (err <= tol and torch.isfinite(out).all()):
+                    raise AssertionError(f"paged_mixed_attention {shape} {name} "
+                                         f"window={window} disagrees with its plain "
+                                         f"version: {err}")
+                errs[(shape, name, window)] = err
+    del qwen, gemma, chunk32, cases
 
     # timings on the main path's variant: bf16 pages, no window
     qq, kk, vv, _ = variants["bfloat16"]
     args = (qq, kk, vv, tbl, starts)
+    pps = choose_pages_per_split(B, Hkv, n, ps, _sm_count(0))
     ms = timed_ms(lambda: decode_attention_mixed(*args, window=-1), flush=flush)
     plain_ms = timed_ms(lambda: paged_mixed_attention_plain(*args, window=-1), flush=flush)
     kd = paged_gather(kk, tbl).transpose(1, 2)                 # (B, Hkv, S, D)
@@ -187,14 +299,23 @@ def check_attention(dev, flush) -> dict:
     keys = sum(int(s) + t + 1 for s in starts.tolist() for t in range(T))
     flops = 4.0 * keys * Hq * D
     b_ms, b_by = bound_ms(n_bytes, flops)
+    live_splits = sum(-(-nl // pps) for nl in n_live) * Hkv
     log(f"[kernels] paged_mixed_attention bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), bound {b_ms:.5f} ms "
         f"({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    log(f"[kernels] paged_mixed_attention bf16: kernel/library {ms / library_ms:.3f}, "
+        f"kernel/bound {ms / b_ms:.1f}; split plan {pps} pages a split, "
+        f"{-(-n // pps)} splits a row, {B * Hkv * -(-n // pps)} pass-1 blocks of which "
+        f"{live_splits} hold live pages")
+    log(f"[kernels] paged_mixed_attention bf16 device time by kernel: "
+        f"{device_us(lambda: decode_attention_mixed(*args, window=-1), flush=flush)}; "
+        f"sdpa: {device_us(lib, flush=flush)}")
     return {"name": "paged_mixed_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_mixed_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:234",
-            "max_abs_err": errs[("bfloat16", -1)], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "max_abs_err": errs[("smollm-135m", "bfloat16", -1)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
 
 
 def check_lmhead(dev, flush) -> dict:
@@ -261,31 +382,41 @@ def check_lmhead(dev, flush) -> dict:
 def check_flash(dev, flush) -> dict:
     """flash attention at the bucketed prefill shape of smollm-135m: 8 rows
     of a 512 bucket, 9 query / 3 kv heads of 64; f32 and bf16, window -1
-    and 64 (a local layer)."""
+    and 64 (a local layer); and, for correctness only, zamba2-2.7b's shared
+    attention (B 4, S 512, 32 / 32 heads of 80) and qwen2.5-3b's heads
+    (16 / 2 of 128)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
 
+    def inputs(B, S, Hq, Hkv, D, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn((B, S, Hq, D), generator=g, device=dev),
+                torch.randn((B, S, Hkv, D), generator=g, device=dev),
+                torch.randn((B, S, Hkv, D), generator=g, device=dev))
+
     B, S, Hq, Hkv, D = 8, 512, 9, 3, 64
-    g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    q = torch.randn((B, S, Hq, D), generator=g, device=dev)
-    k = torch.randn((B, S, Hkv, D), generator=g, device=dev)
-    v = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    q, k, v = inputs(B, S, Hq, Hkv, D, SEED + 2)
+    cases = [("smollm-135m", (q, k, v), (-1, 64)),
+             ("zamba2-2.7b", inputs(4, 512, 32, 32, 80, SEED + 14), (-1,)),
+             ("qwen2.5-3b", inputs(4, 512, 16, 2, 128, SEED + 15), (-1, 64))]
     errs = {}
-    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for window in (-1, 64):
-            qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
-            out = flash_attention_dyn(qq, kk, vv, window)
-            torch.cuda.synchronize()
-            ref = flash_attention_plain(qq, kk, vv, window)
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = 1e-4 if name == "float32" else 2e-2
-            log(f"[kernels] flash_attention {name} window={window}: "
-                f"max |kernel - plain| = {err:.3e} (tol {tol})")
-            if not (err <= tol and torch.isfinite(out).all()):
-                raise AssertionError(f"flash_attention {name} window={window} "
-                                     f"disagrees with its plain version: {err}")
-            errs[(name, window)] = err
+    for shape, (q_, k_, v_), windows in cases:
+        for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for window in windows:
+                qq, kk, vv = q_.to(dt), k_.to(dt), v_.to(dt)
+                out = flash_attention_dyn(qq, kk, vv, window)
+                torch.cuda.synchronize()
+                ref = flash_attention_plain(qq, kk, vv, window)
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = 1e-4 if name == "float32" else 2e-2
+                log(f"[kernels] flash_attention {shape} {name} window={window}: "
+                    f"max |kernel - plain| = {err:.3e} (tol {tol})")
+                if not (err <= tol and torch.isfinite(out).all()):
+                    raise AssertionError(f"flash_attention {shape} {name} window={window} "
+                                         f"disagrees with its plain version: {err}")
+                errs[(shape, name, window)] = err
+    del cases
 
     qq, kk, vv = q.bfloat16(), k.bfloat16(), v.bfloat16()
     ms = timed_ms(lambda: flash_attention_dyn(qq, kk, vv, -1), flush=flush)
@@ -306,11 +437,17 @@ def check_flash(dev, flush) -> dict:
     log(f"[kernels] flash_attention bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), bound {b_ms:.5f} ms "
         f"({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    log(f"[kernels] flash_attention bf16: kernel/library {ms / library_ms:.3f}, "
+        f"kernel/bound {ms / b_ms:.1f}")
+    log(f"[kernels] flash_attention bf16 device time by kernel: "
+        f"{device_us(lambda: flash_attention_dyn(qq, kk, vv, -1), flush=flush)}; "
+        f"sdpa: {device_us(lib, flush=flush)}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
-            "max_abs_err": errs[("bfloat16", -1)], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "max_abs_err": errs[("smollm-135m", "bfloat16", -1)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
 
 
 def check_paged_decode(dev, flush) -> dict:
@@ -439,9 +576,11 @@ def check_ssd_intra(dev, flush) -> dict:
     """SSD intra-chunk term at mamba2-1.3b's width: 64 heads of 64, state
     128, chunk 256, one group (Bh/Ch an expand view over heads, as
     ``ssd_chunked`` passes them).  Checked and timed at the shapes phase
-    5c's prefills give it (b 1, nc 1 and 2: prompts of 64 .. 512 tokens)
-    and at a 2048-token prompt (nc 8), which is the record's shape; plus a
-    ragged smoke shape with two groups (materialised by repeat_interleave).
+    5c's prefills give it (b 1, nc 1 and 2: prompts of 64 .. 512 tokens),
+    at the shape phase 5e's zamba2-2.7b prefills give it (b 4, nc 2, 80
+    heads of 64, state 64, expand view) and at a 2048-token prompt (nc 8),
+    which is the record's shape; plus a ragged smoke shape with two groups
+    (materialised by repeat_interleave).
     f32 throughout; tolerance 1e-5 of the output's largest magnitude (f32
     sums over up to q * n products in another order)."""
     import torch
@@ -464,6 +603,7 @@ def check_ssd_intra(dev, flush) -> dict:
 
     widths = {"nc 1 (phase 5c)": inputs(1, 1, 256, 64, 64, 128, 1, SEED + 4),
               "nc 2 (phase 5c)": inputs(1, 2, 256, 64, 64, 128, 1, SEED + 11),
+              "zamba2-2.7b (phase 5e)": inputs(4, 2, 256, 80, 64, 64, 1, SEED + 17),
               "nc 8 (2048 tokens)": inputs(1, 8, 256, 64, 64, 128, 1, SEED + 5)}
     errs = {}
     for name, args in (*widths.items(),
@@ -921,6 +1061,86 @@ def mha_decode_path(dev, counter) -> int:
     return launches
 
 
+def zamba_path(dev, counters) -> dict:
+    """Phase 5e: zamba2-2.7b at full width at model level (the engine
+    refuses the hybrid, as the JAX engine does): seeded bf16 weights,
+    ``prefill`` of 4 seeded prompts of 512 tokens, then 4 decode steps at
+    one scalar position.  The flash kernel must launch once per shared
+    attention call (54 layers / 6) and the SSD kernel once per layer, in
+    each prefill; logits must be finite.  Prints wall time, the device time
+    of one profiled prefill by kernel, and peak memory."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("zamba2-2.7b")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)                                   # on the GPU
+    params = model.init_params(SEED)
+    weights_mib = sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**20
+    B, S = 4, 512
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 16).integers(
+        0, cfg.vocab, (B, S))).to(dev)
+    n_attn = sum(1 for i in range(cfg.n_layers)
+                 if i % cfg.shared_attn_every == cfg.shared_attn_every - 1)
+
+    def prefill():
+        return model.prefill(params, {"tokens": tokens}, max_len=S + 4)
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {c.__name__: c.launches for c in counters}
+    finite = bool(torch.isfinite(logits).all())
+    out = [logits[:, 0].argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(4):
+        logits, cache = model.decode_step(params, cache, out[-1][:, None], S + i)
+        finite = finite and bool(torch.isfinite(logits).all())
+        out.append(logits[:, 0].argmax(-1))
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 4
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    ok = (finite and launches["flash_attention_dyn"] == n_attn
+          and launches["ssd_intra"] == cfg.n_layers)
+    log(f"[zamba2] {cfg.name} bf16, {cfg.n_layers} layers, d={cfg.d_model}, shared attention "
+        f"every {cfg.shared_attn_every} ({cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}): prefill of {B} x {S} tokens {first_ms:.1f} ms cold, "
+        f"{warm_ms:.1f} ms warm; 4 decode steps {decode_ms:.1f} ms each; launches per "
+        f"prefill {launches} (flash = {n_attn}, ssd_intra = {cfg.n_layers}: {ok}); logits "
+        f"finite {finite}; tokens {torch.stack(out, 1)[0].tolist()}")
+    log(f"[zamba2] peak memory {peak_mib:.0f} MiB (weights {weights_mib:.0f} MiB)")
+    if rows:
+        busy_ms = sum(r[0] for r in rows)
+        log(f"[zamba2] one profiled prefill: device busy {busy_ms:.2f} ms "
+            f"({100 * busy_ms / warm_ms:.1f}% of the {warm_ms:.1f} ms warm wall)")
+        for dev_ms, count, key in sorted(rows, reverse=True)[:8]:
+            log(f"[zamba2]   {dev_ms:9.3f} ms {100 * dev_ms / busy_ms:5.1f}%  x{count:<6d} "
+                f"{key[:80]}")
+    else:
+        log("[zamba2] the profiler reported no device time: not measured")
+    if not ok:
+        raise AssertionError("zamba2-2.7b prefill failed: non-finite logits, or a kernel "
+                             "launch count that is not one per attention call / layer")
+    return launches
+
+
 def path_agreement_f32(dev) -> None:
     """Both paths on smollm-135m at full width in float32 (seeded random
     weights), 8 requests of 16 new tokens: the share of requests with equal
@@ -1060,9 +1280,10 @@ def main() -> int:
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s ({libs[build.SOURCES[0]].parent})")
     for name, lib in libs.items():
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, line in ptxas_report(lib.with_suffix(".log").read_text()):
+            log(f"[build] {name} {fn}: {line}")
+    for name in ("flash_attention", "paged_mixed_attention"):
+        log(f"[build] lib{name}.so: {hmma_count(libs[name])}")
 
     scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
     flush = scratch.zero_
@@ -1099,6 +1320,11 @@ def main() -> int:
     dense_launches = mha_decode_path(dev, decode_attention)
     scaling_loop(dev, ssm_model, ssm_params, ssm_counters, n_requests=12, tag="[scaling ssm]")
     profile_window(dev, ssm_model, ssm_params, tag="[profile ssm]", kind="decode steps")
+
+    # the hybrid at full width: zamba2-2.7b prefill on the card
+    del ssm_model, ssm_params
+    torch.cuda.empty_cache()
+    zamba_path(dev, (flash_attention_dyn, ssd_intra))
 
     by_kernel = {"paged_mixed_attention": launches["decode_attention_mixed"],
                  "lmhead_greedy": launches["fused_lmhead_greedy"],

@@ -11,7 +11,10 @@ Counterparts of ``decode_attention``, ``decode_attention_mixed`` and
 * the mixed-span kernel ``csrc/paged_mixed_attention.cu`` (T queries per
   row, the chunked path); :func:`paged_mixed_attention_plain` is gather +
   span mask + sdpa, the ``use_kernel=False`` branch of the JAX
-  ``lm.block_verify``;
+  ``lm.block_verify``.  Its bf16 instance splits each row's live pages
+  into runs (:func:`split_plan`) and merges the runs' partial softmax
+  sums; :func:`paged_mixed_attention_split_plain` is that two-pass
+  arithmetic in plain PyTorch, for the CPU tests;
 * the one-query decode kernel ``csrc/paged_decode_attention.cu`` (the
   bucketed path's decode loop); :func:`paged_decode_attention_plain` is
   gather + ``_vector_mask`` + sdpa, the ``use_kernel=False`` branch of the
@@ -28,10 +31,13 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.models.attention import sdpa
+from repro_torch.models.attention import NEG_INF, sdpa
 from repro_torch.serving.kvcache import _span_mask, _vector_mask, paged_gather
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# head dims of the dense decode kernel and of the bf16 mixed kernel (the f32
+# mixed kernel takes any)
+_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 
 def _gather_kv(q, k_pages, v_pages, block_table, k_scale, v_scale):
@@ -53,6 +59,97 @@ def paged_mixed_attention_plain(q, k_pages, v_pages, block_table, starts, *,
     k, v = _gather_kv(q, k_pages, v_pages, block_table, k_scale, v_scale)
     mask = _span_mask(k.shape[1], starts, q.shape[1], window)
     return sdpa(q, k, v, mask)
+
+
+# ---------------------------------------------------------------------------------
+# the bf16 mixed kernel's split-K plan
+# ---------------------------------------------------------------------------------
+
+SPLIT_MIN_KEYS = 64          # the least keys a split covers (when the row has them)
+
+
+def live_pages(start: int, T: int, ps: int, n: int, window: int) -> tuple[int, int]:
+    """Pages ``[lo, hi)`` of a row that any of its T queries (positions
+    ``start .. start + T - 1``) can see: the liveness test of the TPU
+    kernel, as the CUDA kernel computes it from ``starts[b]``."""
+    hi = min(n, (start + T - 1) // ps + 1)
+    lo = max(0, start + 1 - window) // ps if window > 0 else 0
+    return lo, hi
+
+
+def choose_pages_per_split(B: int, Hkv: int, n: int, ps: int, sm_count: int) -> int:
+    """Pages per split: at least :data:`SPLIT_MIN_KEYS` keys' worth, doubled
+    while ``B * Hkv * splits`` stays at or above two blocks per SM, capped at
+    the table width ``n``.  A function of shapes only, so the wrapper needs
+    no host sync to pick it."""
+    pps = min(max(1, -(-SPLIT_MIN_KEYS // ps)), max(n, 1))
+    while pps < n and B * Hkv * -(-n // (2 * pps)) >= 2 * sm_count:
+        pps *= 2
+    return min(pps, max(n, 1))
+
+
+def split_plan(starts, T: int, ps: int, n: int, window: int, sm_count: int, *,
+               n_kv_heads: int = 1) -> tuple[int, list[list[tuple[int, int]]]]:
+    """The bf16 kernel's split plan: ``(pages_per_split, runs)``, where
+    ``runs[b]`` lists the live page range ``(lo, hi)`` of each split of row
+    b that holds a live page, in order.  Split s covers table entries
+    ``[s * pps, (s + 1) * pps)``; a block whose split holds no live page
+    exits at once."""
+    starts = [int(s) for s in starts]
+    window = -1 if window is None else int(window)
+    pps = choose_pages_per_split(len(starts), n_kv_heads, n, ps, sm_count)
+    return pps, [_split_runs(*live_pages(s, T, ps, n, window), pps) for s in starts]
+
+
+def _split_runs(lo: int, hi: int, pps: int) -> list[tuple[int, int]]:
+    """The live page range ``(lo', hi')`` of each split that holds a page of
+    ``[lo, hi)``, split s covering table entries ``[s * pps, (s + 1) * pps)``."""
+    if hi <= lo:
+        return []
+    return [(max(lo, s * pps), min(hi, (s + 1) * pps))
+            for s in range(lo // pps, (hi - 1) // pps + 1)]
+
+
+def paged_mixed_attention_split_plain(q, k_pages, v_pages, block_table, starts, *,
+                                      window: int = -1, k_scale=None, v_scale=None,
+                                      pages_per_split: int = 1):
+    """Plain version of the bf16 kernel's two-pass arithmetic: per row and
+    split, f32 partials ``(m, l, acc)`` over the split's live pages (a query
+    that sees no key there has ``l = 0``), then the log-sum-exp merge.
+    Pages are dequantized to q's dtype as in
+    :func:`paged_mixed_attention_plain`.  Nothing on the serving path calls
+    it; ``starts`` is read on the host."""
+    B, T, Hq, D = q.shape
+    ps, Hkv = k_pages.shape[1], k_pages.shape[2]
+    n = block_table.shape[1]
+    group = Hq // Hkv
+    window = -1 if window is None else int(window)
+    k, v = _gather_kv(q, k_pages, v_pages, block_table, k_scale, v_scale)
+    out = torch.zeros_like(q)
+    for b, start in enumerate(int(s) for s in starts.tolist()):
+        lo, hi = live_pages(start, T, ps, n, window)
+        qf = (q[b].float() * D ** -0.5).reshape(T, Hkv, group, D)
+        q_pos = start + torch.arange(T)[:, None]
+        parts = []
+        for pa, pe in _split_runs(lo, hi, pages_per_split):
+            k_pos = torch.arange(pa * ps, pe * ps)[None, :]
+            valid = k_pos <= q_pos
+            if window > 0:
+                valid &= k_pos > q_pos - window
+            sc = torch.einsum("thgd,khd->hgtk", qf, k[b, pa * ps:pe * ps].float())
+            sc = torch.where(valid, sc, torch.full_like(sc, -torch.inf))
+            m = sc.amax(-1).clamp_min(NEG_INF)            # the kernel's finite start
+            p = torch.where(valid, torch.exp(sc - m[..., None]), torch.zeros_like(sc))
+            acc = torch.einsum("hgtk,khd->hgtd", p, v[b, pa * ps:pe * ps].float())
+            parts.append((m, p.sum(-1), acc))
+        if not parts:
+            continue
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        L = sum(l_ * torch.exp(m - M) for m, l_, _ in parts)
+        A = sum(acc * torch.exp(m - M)[..., None] for m, _, acc in parts)
+        o = A / L.clamp_min(1e-30)[..., None]             # (Hkv, group, T, D)
+        out[b] = o.permute(2, 0, 1, 3).reshape(T, Hq, D).to(q.dtype)
+    return out
 
 
 def paged_decode_attention_plain(q1, k_pages, v_pages, block_table, lengths, *,
@@ -97,10 +194,15 @@ def _check_pool(name, q, k_pages, v_pages, block_table, rows, k_scale, v_scale):
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.load("paged_mixed_attention").paged_mixed_attention
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_mixed(q, k_pages, v_pages, block_table, starts, *,
@@ -112,7 +214,9 @@ def decode_attention_mixed(q, k_pages, v_pages, block_table, starts, *,
     q, or int8 with ``k_scale``/``v_scale`` (P, page_size, Hkv, 1) float32;
     block_table: (B, n) int32; starts: (B,); ``window``: sliding-window width,
     -1 or None = unlimited.  The span's own KV must be written before the
-    call.  Returns (B, T, Hq, D) in q's dtype.
+    call.  The bf16 kernel splits each row's pages as
+    :func:`choose_pages_per_split` picks; the f32 kernel does not split.
+    Returns (B, T, Hq, D) in q's dtype.
     """
     window = -1 if window is None else int(window)
     if not q.is_cuda:
@@ -128,12 +232,33 @@ def decode_attention_mixed(q, k_pages, v_pages, block_table, starts, *,
     tbl = block_table.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    n = tbl.shape[1]
+    pps = n_splits = 0
+    part_ml = part_acc = None
+    if q.dtype == torch.bfloat16:               # the split-K tensor-core kernel
+        if D not in _HEAD_DIMS:
+            raise ValueError(f"decode_attention_mixed: bf16 head dim {D} unsupported "
+                             f"(one of {_HEAD_DIMS})")
+        if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+            raise ValueError("decode_attention_mixed: q and the page pools must be "
+                             "16-byte aligned (the kernel copies 16 bytes at a time)")
+        pps = choose_pages_per_split(B, Hkv, n, ps, _sm_count(q.device.index or 0))
+        n_splits = -(-n // pps)
+        rows = T * (Hq // Hkv)
+        part_ml = torch.empty((B, Hkv, n_splits, rows, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((B, Hkv, n_splits, rows, D), dtype=torch.float32,
+                               device=q.device)
+    if not (B and T):
+        return out
     err = _kernel()(
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], q.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
         tbl.data_ptr(), st.data_ptr(), out.data_ptr(),
-        B, T, Hq, Hkv, D, ps, tbl.shape[1], window, D ** -0.5,
+        None if part_ml is None else part_ml.data_ptr(),
+        None if part_acc is None else part_acc.data_ptr(),
+        B, T, Hq, Hkv, D, ps, n, window, D ** -0.5, pps, n_splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_mixed_attention launch failed: CUDA error {err}")
@@ -201,9 +326,6 @@ decode_attention_paged.launches = 0     # kernel launches, for the chip smoke ru
 # dense cache, one scalar position (attention.mha_decode)
 # ---------------------------------------------------------------------------------
 
-_DENSE_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-
-
 def _dense_span(S: int, pos: int, window: int) -> tuple[int, int]:
     """Visible keys ``[lo, hi)`` of a dense cache of S positions."""
     return (max(pos - window, 0) if window > 0 else 0), min(pos, S)
@@ -259,10 +381,10 @@ def decode_attention(q1, k_cache, v_cache, pos, *, window: int | None = None,
         raise TypeError(f"decode_attention: dtypes q {q1.dtype} k {k_cache.dtype} "
                         f"v {v_cache.dtype} unsupported (float32 or bfloat16, alike)")
     if (k_cache.shape != (B, S, Hkv, D) or v_cache.shape != k_cache.shape or Hq % Hkv
-            or D not in _DENSE_HEAD_DIMS):
+            or D not in _HEAD_DIMS):
         raise ValueError(f"decode_attention: shapes q {tuple(q1.shape)} "
                          f"cache {tuple(k_cache.shape)} unsupported "
-                         f"(head dim in {_DENSE_HEAD_DIMS})")
+                         f"(head dim in {_HEAD_DIMS})")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()) or (
             k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16):
         raise ValueError("decode_attention: caches must be contiguous and 16-byte "
@@ -285,4 +407,6 @@ decode_attention.launches = 0           # kernel launches, for the chip smoke ru
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_mixed", "paged_mixed_attention_plain",
+           "paged_mixed_attention_split_plain", "split_plan",
+           "choose_pages_per_split", "live_pages",
            "decode_attention_paged", "paged_decode_attention_plain"]

@@ -20,7 +20,7 @@ from repro_torch.kernels import build
 from repro_torch.models.attention import attention_mask, sdpa
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 
 def flash_attention_plain(q, k, v, window: int = -1):
@@ -41,11 +41,21 @@ def _kernel():
     return fn
 
 
+def _readable(t) -> bool:
+    """Whether the kernel reads ``t`` in place: the head dim contiguous and,
+    for bf16 (16-byte copies of 8 elements), every row 16-byte aligned."""
+    if t.stride(-1) != 1:
+        return False
+    return t.dtype != torch.bfloat16 or (
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]))
+
+
 def flash_attention_dyn(q, k, v, window):
     """Runtime-window causal attention, as the prefill layer loop calls it.
 
     q: (B, S, Hq, D); k/v: (B, S, Hkv, D), float32 or bf16 alike, the head
-    dim contiguous; ``window``: int, <= 0 = full causal.  Returns a
+    dim contiguous (a bf16 view whose rows are not 16-byte aligned is
+    copied first); ``window``: int, <= 0 = full causal.  Returns a
     contiguous (B, S, Hq, D) in q's dtype.
     """
     window = int(window)
@@ -62,7 +72,8 @@ def flash_attention_dyn(q, k, v, window):
             or D not in _HEAD_DIMS):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} unsupported (head dim in {_HEAD_DIMS})")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (t if _readable(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v) for i in range(3)))
     if B and S:

@@ -91,13 +91,15 @@ def torch_pair(arch: str, *, kv: str = "native", seed: int = 0):
     return jc, tc, build_model(jc), jax_tree_from_torch(tp), tp
 
 
-def mixed_inputs(group, int8, *, B=3, T=4, Hkv=2, D=8, ps=4, n=6, seed=0):
-    """Pool with heterogeneous row starts; table entries past each row's live
-    pages point at page 0, which holds garbage that must never be read."""
+def mixed_inputs(group, int8, *, B=3, T=4, Hkv=2, D=8, ps=4, n=6, seed=0, starts=None):
+    """Pool with heterogeneous row starts (``starts``, default 0, 5, 13 for
+    the first B rows); table entries past each row's live pages point at
+    page 0, which holds garbage that must never be read."""
     rng = np.random.default_rng(seed)
+    starts = np.array([0, 5, 13][:B] if starts is None else starts, np.int32)
+    B = len(starts)
     P = B * n + 1
     Hq = Hkv * group
-    starts = np.array([0, 5, 13][:B], np.int32)
     perm = rng.permutation(np.arange(1, P)).astype(np.int32)
     tbl = np.zeros((B, n), np.int32)
     for b in range(B):

@@ -105,6 +105,98 @@ def test_flash_attention_kernel_matches_plain(dtype, window, group, S, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [-1, 5, 100])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 256])
+@pytest.mark.parametrize("group,S", [(1, 100), (3, 200), (8, 513)])
+def test_flash_attention_kernel_every_head_dim(dtype, window, D, group, S):
+    """Every head dim the kernel is built for (80: zamba2's shared
+    attention), S off the 64-row tile, windows inside one tile and across
+    several, GQA groups 1 / 3 / 8."""
+    dev = require_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dev, dt) for a in flash_inputs(group, S=S, D=D))
+    before = flash_attention_dyn.launches
+    out = flash_attention_dyn(q, k, v, window)
+    torch.cuda.synchronize()
+    assert flash_attention_dyn.launches == before + 1
+    ref = flash_attention_plain(q, k, v, window)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_unsupported_head_dim():
+    dev = require_cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in flash_inputs(1, S=64, D=48))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_dyn(q, k, v, -1)
+
+
+# (n, starts) of 16-token pages: a 4-entry table (64 keys: one split a
+# row) and a 64-entry one (4 pages a split, 16 splits) with rows of 1, 32
+# and 64 live pages
+SPLIT_TABLES = {"one split": (4, [0, 64 - 16, 30]), "many splits": (64, [0, 1024 - 16, 500])}
+
+
+def _check_split_kernel(T, group, D, dtype, window, n, starts, one_split):
+    """The bf16 split-K kernel against its plain version on a seeded pool
+    of 16-token pages, 2 kv heads; ``one_split`` says which plan the
+    wrapper must make from the table."""
+    from repro_torch.kernels.decode_attention.ops import choose_pages_per_split
+    dev = require_cuda()
+    pps = choose_pages_per_split(len(starts), 2, n, 16,
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert (pps >= n) == one_split
+    q, kp, vp, ks, vs, tbl, starts = mixed_inputs(group, dtype == "int8", T=T, D=D, ps=16,
+                                                   n=n, starts=starts)
+    args = [torch.from_numpy(q).to(dev, torch.bfloat16)]
+    if dtype == "int8":
+        args += [torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)]
+        sc = dict(k_scale=torch.from_numpy(ks).to(dev), v_scale=torch.from_numpy(vs).to(dev))
+    else:
+        args += [torch.from_numpy(kp).to(dev, torch.bfloat16),
+                 torch.from_numpy(vp).to(dev, torch.bfloat16)]
+        sc = {}
+    args += [torch.from_numpy(tbl).to(dev), torch.from_numpy(starts).to(dev)]
+    before = decode_attention_mixed.launches
+    out = decode_attention_mixed(*args, window=window, **sc)
+    torch.cuda.synchronize()
+    assert decode_attention_mixed.launches == before + 1
+    ref = paged_mixed_attention_plain(*args, window=window, **sc)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", list(SPLIT_TABLES))
+@pytest.mark.parametrize("window", [-1, 100])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("group,D", [(2, 256), (3, 64), (8, 128)])
+@pytest.mark.parametrize("T", [1, 4, 16])
+def test_mixed_attention_split_kernel_matches_plain(T, group, D, dtype, window, table):
+    """The bf16 split-K kernel against its plain version: every split plan
+    the wrapper makes from these tables, one split a row and many."""
+    n, starts = SPLIT_TABLES[table]
+    _check_split_kernel(T, group, D, dtype, window, n, starts, table == "one split")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["one split", "many splits"])
+@pytest.mark.parametrize("window", [-1, 100])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("T,group,D", [(32, 8, 128), (48, 3, 64)])
+def test_mixed_attention_split_kernel_row_tiles(T, group, D, dtype, window, table):
+    """More than 128 query rows a kv head (T * group 256 and 144: chunk 32
+    on qwen2.5-3b's heads, chunk 48 on smollm-135m's), so pass 1 runs two
+    row tiles a (row, kv head) and the second is ragged at 144."""
+    n = 4 if table == "one split" else 64
+    starts = [0, n * 16 - T, (n * 16 - T) // 2]
+    _check_split_kernel(T, group, D, dtype, window, n, starts, table == "one split")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("window", [-1, 3])
 @pytest.mark.parametrize("ps", [4, 16])
@@ -345,3 +437,35 @@ def test_zamba_model_on_card_matches_cpu():
             out.append(logits[:, 0].argmax(-1))
         toks[where] = torch.stack(out, 1).cpu()
     assert torch.equal(toks["cuda"], toks["cpu"])
+
+
+@pytest.mark.cuda
+def test_zamba_head_dim_80_on_card_matches_cpu():
+    """zamba2-smoke widened to head dim 80 (d_model 160, 2 heads), the
+    shared attention's width at full size, at float32: prefill through the
+    flash kernel, then four decode steps; identical greedy tokens on the
+    card and the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    require_cuda()
+    cfg = dataclasses.replace(get_smoke_config("zamba2-2.7b"), d_model=160, n_heads=2,
+                              n_kv_heads=2, dtype=torch.float32)
+    assert cfg.resolved_head_dim == 80
+    cpu_params = build_model(cfg, device="cpu").init_params(0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, 70)))
+    toks, logits_at = {}, {}
+    for where in ("cpu", "cuda"):
+        model = build_model(cfg, device=where)
+        params = tree_to(cpu_params, where)
+        before = flash_attention_dyn.launches
+        logits, cache = model.prefill(params, {"tokens": tokens.to(where)}, max_len=80)
+        if where == "cuda":
+            assert flash_attention_dyn.launches - before == cfg.n_layers // cfg.shared_attn_every
+        logits_at[where] = logits.cpu()
+        out = [logits[:, 0].argmax(-1)]
+        for i in range(4):
+            logits, cache = model.decode_step(params, cache, out[-1][:, None], 70 + i)
+            out.append(logits[:, 0].argmax(-1))
+        toks[where] = torch.stack(out, 1).cpu()
+    assert torch.equal(toks["cuda"], toks["cpu"])
+    torch.testing.assert_close(logits_at["cuda"], logits_at["cpu"], atol=1e-4, rtol=1e-4)
