@@ -9,14 +9,18 @@ Phases, each of which fails the run if it fails:
 2. build every hand-written CUDA kernel from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel); print
    each kernel's registers and spills, and the HMMA (tensor-core) count in
-   the SASS of the two attention libraries with bf16 tensor-core bodies;
+   the SASS of the three libraries with bf16 tensor-core bodies (flash,
+   paged mixed attention, the lm-head), none of which may be 0;
 3. hold each kernel against its plain PyTorch version at the serving
    shapes of smollm-135m (the SSD intra-chunk kernel at mamba2-1.3b's
    prefill shape, the dense decode-attention kernel at zamba2-2.7b's shared
-   attention; the two attention kernels also at qwen2.5-3b's, gemma3-4b's
-   and zamba2-2.7b's head shapes), and time the kernel, the plain version
-   and a PyTorch library yardstick beside the least time the card could
-   take;
+   attention; the three attention kernels also at qwen2.5-3b's and
+   gemma3-4b's head shapes, flash and paged mixed at zamba2-2.7b's; paged
+   decode at the batches 1 .. 8 the bucketed engine compacts to and at
+   split and window edges; the lm-head also untied, at qwen2.5-3b's width
+   and with ties across its persistent blocks), and time the kernel, the
+   plain version and a PyTorch library yardstick beside the least time the
+   card could take;
 4. small end-to-end references: the smoke config at float32 served on the
    card (kernels) and on the CPU (plain versions) must emit identical
    tokens, on the chunked path and on the bucketed-prefill path; likewise
@@ -173,19 +177,20 @@ def ptxas_report(log_text: str):
             yield fn, f"{line.split('Used', 1)[1].strip()}; {spill}"
 
 
-def hmma_count(lib: Path) -> str:
+def hmma_count(lib: Path) -> tuple[int | None, str]:
     """The number of HMMA (tensor-core) instructions in a library's SASS,
-    from ``cuobjdump -sass``; a missing tool is reported as such."""
+    from ``cuobjdump -sass``, and a line that says so; a missing tool gives
+    None and is reported as such."""
     import shutil
     tool = next((str(p) for p in (Path("/usr/local/cuda/bin/cuobjdump"),) if p.exists()),
                 shutil.which("cuobjdump"))
     if tool is None:
-        return "HMMA count not read (no cuobjdump)"
+        return None, "HMMA count not read (no cuobjdump)"
     res = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
-        return f"HMMA count not read (cuobjdump exit {res.returncode})"
+        return None, f"HMMA count not read (cuobjdump exit {res.returncode})"
     n = sum(1 for line in res.stdout.splitlines() if "HMMA" in line)
-    return f"{n} HMMA instructions in the SASS (cuobjdump -sass)"
+    return n, f"{n} HMMA instructions in the SASS (cuobjdump -sass)"
 
 
 # ---------------------------------------------------------------------------------
@@ -318,60 +323,104 @@ def check_attention(dev, flush) -> dict:
             "library_ms": library_ms}
 
 
-def check_lmhead(dev, flush) -> dict:
-    """fused lm-head at the serving shape: 128 rows (8 x 16 span positions),
-    d = 576, the tied 49152 x 576 bf16 embedding as the head; plus a case
-    of exact ties."""
+def lmhead_case(dev, N, d, V, *, tied=True, seed=SEED + 1):
+    """Seeded bf16 h (N, d) and head w (d, V): tied ``embed.T`` of a (V, d)
+    embedding, or an untied (d, V) matrix with contiguous rows."""
     import torch
-    from repro_torch.kernels.sampling.ops import fused_lmhead_greedy, lmhead_greedy_plain
-
-    N, d, V = 128, 576, 49152
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    g = torch.Generator(device=dev).manual_seed(seed)
     h = torch.randn((N, d), generator=g, device=dev).bfloat16()
     embed = (torch.randn((V, d), generator=g, device=dev) * 0.02).bfloat16()
-    w = embed.T                                   # the tied head, a strided view
-    tok, lp = fused_lmhead_greedy(h, w)
-    torch.cuda.synchronize()
-    tok_p, lp_p = lmhead_greedy_plain(h, w)
-    logits = h.float() @ w.float()
-    top2 = logits.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-4      # summation order differs
-    lp_err = (lp - lp_p).abs().max().item()
-    log(f"[kernels] lmhead_greedy bf16: {int(clear.sum())}/{N} rows with a clear top-1, "
-        f"tokens equal on them: {bool(torch.equal(tok[clear], tok_p[clear]))}; "
-        f"max |lp - plain| = {lp_err:.3e} (tol 1e-3)")
-    if not (torch.equal(tok[clear], tok_p[clear]) and lp_err <= 1e-3):
-        raise AssertionError("lmhead_greedy disagrees with its plain version")
+    return h, (embed.T if tied else embed.T.contiguous())
 
-    # exact ties: integer-valued inputs make every logit exact in f32
+
+def check_lmhead(dev, flush) -> dict:
+    """fused lm-head at the serving shape: 128 rows (8 x 16 span positions),
+    d = 576, the tied 49152 x 576 bf16 embedding as the head; the untied
+    (d, V) layout; qwen2.5-3b's width and untied head (d 2048, V 151936)
+    at N 128 and 256 (two row tiles); a ragged N and V; and exact ties, one placed in the
+    tiles of two different persistent blocks.  Tokens must equal the plain
+    version's on rows with a clear top-1 (gap > 1e-4), logprob within
+    1e-3."""
+    import torch
+    from repro_torch.kernels.sampling.ops import (
+        LMHEAD_TILE_V, _kernel, _sm_count, fused_lmhead_greedy, lmhead_greedy_plain)
+
+    def check(label, h, w):
+        tok, lp = fused_lmhead_greedy(h, w)
+        torch.cuda.synchronize()
+        tok_p, lp_p = lmhead_greedy_plain(h, w)
+        top2 = (h.float() @ w.float()).topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-4      # summation order differs
+        lp_err = (lp - lp_p).abs().max().item()
+        same = bool(torch.equal(tok[clear], tok_p[clear]))
+        log(f"[kernels] lmhead_greedy bf16 {label}: {int(clear.sum())}/{h.shape[0]} rows with a "
+            f"clear top-1, tokens equal on them: {same}; max |lp - plain| = {lp_err:.3e} "
+            f"(tol 1e-3)")
+        if not (same and lp_err <= 1e-3 and clear.float().mean() > 0.9):
+            raise AssertionError(f"lmhead_greedy {label} disagrees with its plain version")
+        return lp_err
+
+    N, d, V = 128, 576, 49152
+    h, w = lmhead_case(dev, N, d, V)
+    lp_err = check("smollm-135m tied 128 x 576 x 49152", h, w)
+    check("smollm-135m untied (d, V)", *lmhead_case(dev, N, d, V, tied=False))
+    check("ragged N 130, V 4099", *lmhead_case(dev, 130, d, 4099, seed=SEED + 19))
+    qwen = {}                                      # the config's untied (d, V) head
+    for n_rows in (128, 256):
+        qwen[n_rows] = lmhead_case(dev, n_rows, 2048, 151936, tied=False, seed=SEED + 20)
+        check(f"qwen2.5-3b untied {n_rows} x 2048 x 151936", *qwen[n_rows])
+
+    # exact ties: integer-valued inputs make every logit exact in f32; row 0's
+    # maximum sits at columns 200 and 40000, in two different blocks' tiles
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
     hi = torch.randint(-2, 3, (N, d), generator=g, device=dev).bfloat16()
     ei = torch.randint(-1, 2, (V, d), generator=g, device=dev).bfloat16()
-    first = int((hi[0].float() @ ei.float().T).argmax())
-    ei[5] = ei[V - 1] = ei[first]
+    ei[200] = ei[40000] = torch.sign(hi[0].float()).bfloat16()
+    blocks = _kernel()[1](1, N, V, _sm_count(0))
     tok_t, lp_t = fused_lmhead_greedy(hi, ei.T)
     torch.cuda.synchronize()
     tok_tp, lp_tp = lmhead_greedy_plain(hi, ei.T)
-    tie_ok = (torch.equal(tok_t, tok_tp) and int(tok_t[0]) == min(first, 5)
+    two_blocks = (200 // LMHEAD_TILE_V) % blocks != (40000 // LMHEAD_TILE_V) % blocks
+    tie_ok = (torch.equal(tok_t, tok_tp) and int(tok_t[0]) == 200 and two_blocks
               and (lp_t - lp_tp).abs().max().item() <= 1e-3)
-    log(f"[kernels] lmhead_greedy ties: row 0 -> {int(tok_t[0])} (first maximal index "
-        f"{min(first, 5)}), all rows equal to plain: {bool(torch.equal(tok_t, tok_tp))}")
+    log(f"[kernels] lmhead_greedy ties: row 0 -> {int(tok_t[0])} (first maximal index 200; "
+        f"40000 in block {(40000 // LMHEAD_TILE_V) % blocks} of {blocks}, 200 in block "
+        f"{(200 // LMHEAD_TILE_V) % blocks}), all rows equal to plain: "
+        f"{bool(torch.equal(tok_t, tok_tp))}")
     if not tie_ok:
         raise AssertionError("lmhead_greedy breaks ties differently from argmax")
 
     ms = timed_ms(lambda: fused_lmhead_greedy(h, w), flush=flush)
     plain_ms = timed_ms(lambda: lmhead_greedy_plain(h, w), flush=flush)
 
-    def lib():
-        x = torch.matmul(h, w)
-        return x.max(dim=-1), torch.logsumexp(x.float(), dim=-1)
+    def library(hh, ww):
+        def lib():
+            x = torch.matmul(hh, ww)
+            return x.max(dim=-1), torch.logsumexp(x.float(), dim=-1)
+        return lib
 
-    library_ms = timed_ms(lib, flush=flush)
+    library_ms = timed_ms(library(h, w), flush=flush)
     n_bytes = V * d * 2 + N * d * 2 + N * 8
     flops = 2.0 * N * d * V
     b_ms, b_by = bound_ms(n_bytes, flops)
     log(f"[kernels] lmhead_greedy bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"matmul+max+logsumexp {library_ms:.4f} ms, bound {b_ms:.5f} ms "
-        f"({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        f"({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); kernel/library "
+        f"{ms / library_ms:.3f}, kernel/bound {ms / b_ms:.2f}; {blocks} persistent blocks")
+    log(f"[kernels] lmhead_greedy bf16 device time by kernel: "
+        f"{device_us(lambda: fused_lmhead_greedy(h, w), flush=flush)}")
+    hu, wu = lmhead_case(dev, N, d, V, tied=False)
+    log(f"[kernels] lmhead_greedy bf16 untied: kernel "
+        f"{timed_ms(lambda: fused_lmhead_greedy(hu, wu), flush=flush):.4f} ms, library "
+        f"{timed_ms(library(hu, wu), flush=flush):.4f} ms")
+    for n_rows, (hq, wq) in qwen.items():
+        q_ms = timed_ms(lambda: fused_lmhead_greedy(hq, wq), flush=flush)
+        q_lib = timed_ms(library(hq, wq), flush=flush)
+        q_b, _ = bound_ms(wq.numel() * 2 + hq.numel() * 2 + n_rows * 8, 2.0 * hq.numel() * 151936)
+        log(f"[kernels] lmhead_greedy bf16 qwen2.5-3b N {n_rows}: kernel {q_ms:.4f} ms, library "
+            f"{q_lib:.4f} ms, bound {q_b:.4f} ms; kernel/library {q_ms / q_lib:.3f}, "
+            f"kernel/bound {q_ms / q_b:.2f}")
+    del qwen
     return {"name": "lmhead_greedy", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lmhead_greedy.cu",
             "replaces": "src/repro/kernels/sampling/kernel.py:139",
@@ -450,56 +499,77 @@ def check_flash(dev, flush) -> dict:
             "library_ms": library_ms}
 
 
+def decode_inputs(dev, B, Hq, Hkv, D, ps, n, lengths, seed):
+    """:func:`paged_inputs` at T = 1: one query a row at ``lengths - 1``;
+    returns (variants, table, lengths, live pages a row)."""
+    variants, tbl, starts, n_live = paged_inputs(dev, B, 1, Hq, Hkv, D, ps, n,
+                                                 [x - 1 for x in lengths], seed)
+    return variants, tbl, starts + 1, n_live
+
+
+# the bucketed decode shape's lengths: 64, 448, 512 and 640 end on a split
+# boundary (4 pages of 16 a split), the others inside a page
+DECODE_LENGTHS = [64, 97, 160, 255, 321, 448, 512, 640]
+
+
 def check_paged_decode(dev, flush) -> dict:
     """paged decode attention at the bucketed decode shape of smollm-135m:
     8 rows of one query, lengths 64 .. 640, 9 query / 3 kv heads of 64,
-    16-token pages, 64 pages a row; bf16 and int8 pages, window -1 and 64."""
+    16-token pages, 64 pages a row; bf16 and int8 pages, window -1, 64 (on
+    a page boundary) and 40 (inside a page); the batches 1, 2 and 4 the
+    bucketed engine compacts to; rows of 1, 64 and 128 keys (a live range
+    ending on a split boundary); and qwen2.5-3b's (16 / 2 of 128) and
+    gemma3-4b's local (8 / 4 of 256, window 1024) head shapes.  Timed
+    beside sdpa over the gathered pages and the mixed kernel at T = 1."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
-        decode_attention_paged, paged_decode_attention_plain)
+        _sm_count, choose_pages_per_split, decode_attention_mixed, decode_attention_paged,
+        paged_decode_attention_plain)
     from repro_torch.serving.kvcache import _vector_mask, paged_gather
 
     B, Hq, Hkv, D, ps, n = 8, 9, 3, 64, 16, 64
-    P = B * n + 1
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    lengths = torch.tensor([64, 97, 160, 255, 321, 448, 512, 640], dtype=torch.int32,
-                           device=dev)
-    perm = torch.randperm(P - 1, generator=g, device=dev).to(torch.int32) + 1
-    tbl = torch.zeros((B, n), dtype=torch.int32, device=dev)   # dead entries: page 0
-    n_live = [-(-int(x) // ps) for x in lengths.tolist()]
-    for b in range(B):
-        tbl[b, :n_live[b]] = perm[b * n:b * n + n_live[b]]
-    q = torch.randn((B, 1, Hq, D), generator=g, device=dev).bfloat16()
-    kb = torch.randn((P, ps, Hkv, D), generator=g, device=dev).bfloat16()
-    vb = torch.randn((P, ps, Hkv, D), generator=g, device=dev).bfloat16()
-    kb[0] = vb[0] = 1e3                                        # trash-page garbage
-    k8 = torch.randint(-127, 128, (P, ps, Hkv, D), generator=g, device=dev,
-                       dtype=torch.int8)
-    v8 = torch.randint(-127, 128, (P, ps, Hkv, D), generator=g, device=dev,
-                       dtype=torch.int8)
-    k8[0] = v8[0] = 127
-    ks = torch.rand((P, ps, Hkv, 1), generator=g, device=dev) * 0.02 + 1e-3
-    vs = torch.rand((P, ps, Hkv, 1), generator=g, device=dev) * 0.02 + 1e-3
-    variants = {"bfloat16": (kb, vb, {}), "int8": (k8, v8, {"k_scale": ks, "v_scale": vs})}
+    variants, tbl, lengths, n_live = decode_inputs(dev, B, Hq, Hkv, D, ps, n, DECODE_LENGTHS,
+                                                   SEED + 3)
+    cases = [("smollm-135m", variants, tbl, lengths, (-1, 64, 40))]
+    for b in (1, 2, 4):
+        cases.append((f"smollm-135m B {b}", *decode_inputs(
+            dev, b, Hq, Hkv, D, ps, n, DECODE_LENGTHS[-b:], SEED + 21 + b)[:3], (-1, 40)))
+    cases.append(("smollm-135m split edges", *decode_inputs(
+        dev, 4, Hq, Hkv, D, ps, n, [1, 64, 128, 129], SEED + 25)[:3], (-1, 64, 7)))
+    cases.append(("qwen2.5-3b", *decode_inputs(dev, 8, 16, 2, 128, ps, n, DECODE_LENGTHS,
+                                               SEED + 26)[:3], (-1,)))
+    cases.append(("gemma3-4b local", *decode_inputs(
+        dev, 8, 8, 4, 256, ps, 128, [64, 300, 1024, 1025, 1500, 1893, 2000, 2048],
+        SEED + 27)[:3], (1024,)))
     errs = {}
-    for name, (kk, vv, sc) in variants.items():
-        for window in (-1, 64):
-            args = (q, kk, vv, tbl, lengths)
-            out = decode_attention_paged(*args, window=window, **sc)
-            torch.cuda.synchronize()
-            ref = paged_decode_attention_plain(*args, window=window, **sc)
-            err = (out.float() - ref.float()).abs().max().item()
-            log(f"[kernels] paged_decode_attention {name} window={window}: "
-                f"max |kernel - plain| = {err:.3e} (tol 2e-2)")
-            if not (err <= 2e-2 and torch.isfinite(out).all()):
-                raise AssertionError(f"paged_decode_attention {name} window={window} "
-                                     f"disagrees with its plain version: {err}")
-            errs[(name, window)] = err
+    for shape, var, tb, lens, windows in cases:
+        for name in ("bfloat16", "int8"):
+            qq, kk, vv, sc = var[name]
+            for window in windows:
+                args = (qq, kk, vv, tb, lens)
+                out = decode_attention_paged(*args, window=window, **sc)
+                torch.cuda.synchronize()
+                ref = paged_decode_attention_plain(*args, window=window, **sc)
+                err = (out.float() - ref.float()).abs().max().item()
+                log(f"[kernels] paged_decode_attention {shape} {name} window={window}: "
+                    f"max |kernel - plain| = {err:.3e} (tol 2e-2)")
+                if not (err <= 2e-2 and torch.isfinite(out).all()):
+                    raise AssertionError(f"paged_decode_attention {shape} {name} "
+                                         f"window={window} disagrees with its plain version: "
+                                         f"{err}")
+                errs[(shape, name, window)] = err
+    del cases
 
+    q, kb, vb, _ = variants["bfloat16"]
     args = (q, kb, vb, tbl, lengths)
     ms = timed_ms(lambda: decode_attention_paged(*args, window=-1), flush=flush)
+    q8, k8, v8, sc8 = variants["int8"]
+    int8_ms = timed_ms(lambda: decode_attention_paged(q8, k8, v8, tbl, lengths, window=-1,
+                                                      **sc8), flush=flush)
     plain_ms = timed_ms(lambda: paged_decode_attention_plain(*args, window=-1), flush=flush)
+    mixed_ms = timed_ms(lambda: decode_attention_mixed(q, kb, vb, tbl, lengths - 1, window=-1),
+                        flush=flush)
     kd = paged_gather(kb, tbl).transpose(1, 2)                 # (B, Hkv, S, D)
     vd = paged_gather(vb, tbl).transpose(1, 2)
     mask = _vector_mask(n * ps, lengths - 1, -1)[:, None]      # (B, 1, 1, S)
@@ -517,14 +587,26 @@ def check_paged_decode(dev, flush) -> dict:
                + tbl.numel() * 4 + lengths.numel() * 4)
     flops = 4.0 * Hq * D * int(lengths.sum())
     b_ms, b_by = bound_ms(n_bytes, flops)
-    log(f"[kernels] paged_decode_attention bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), bound {b_ms:.5f} ms "
+    pps = choose_pages_per_split(B, Hkv, n, ps, _sm_count(0))
+    live_splits = sum(-(-nl // pps) for nl in n_live) * Hkv
+    log(f"[kernels] paged_decode_attention bf16: kernel {ms:.4f} ms (int8 pages {int8_ms:.4f}), "
+        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), "
+        f"mixed kernel at T = 1 {mixed_ms:.4f} ms, bound {b_ms:.5f} ms "
         f"({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
+    log(f"[kernels] paged_decode_attention bf16: kernel/library {ms / library_ms:.3f}, "
+        f"kernel/mixed {ms / mixed_ms:.3f}, kernel/bound {ms / b_ms:.1f}; split plan {pps} "
+        f"pages a split, {-(-n // pps)} splits a row, {B * Hkv * -(-n // pps)} pass-1 blocks of "
+        f"which {live_splits} hold live pages")
+    log(f"[kernels] paged_decode_attention bf16 device time by kernel: "
+        f"{device_us(lambda: decode_attention_paged(*args, window=-1), flush=flush)}; "
+        f"int8: {device_us(lambda: decode_attention_paged(q8, k8, v8, tbl, lengths, window=-1, **sc8), flush=flush)}; "
+        f"sdpa: {device_us(lib, flush=flush)}")
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:288",
-            "max_abs_err": errs[("bfloat16", -1)], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "max_abs_err": errs[("smollm-135m", "bfloat16", -1)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
 
 
 def check_greedy(dev, flush) -> dict:
@@ -1282,8 +1364,11 @@ def main() -> int:
     for name, lib in libs.items():
         for fn, line in ptxas_report(lib.with_suffix(".log").read_text()):
             log(f"[build] {name} {fn}: {line}")
-    for name in ("flash_attention", "paged_mixed_attention"):
-        log(f"[build] lib{name}.so: {hmma_count(libs[name])}")
+    for name in ("flash_attention", "paged_mixed_attention", "lmhead_greedy"):
+        n_hmma, line = hmma_count(libs[name])
+        log(f"[build] lib{name}.so: {line}")
+        if n_hmma == 0:
+            raise AssertionError(f"lib{name}.so holds no tensor-core instruction")
 
     scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
     flush = scratch.zero_

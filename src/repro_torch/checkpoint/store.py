@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.registry import resolve_device
+
 _BF16 = "__bf16__"
 
 
@@ -43,7 +45,7 @@ def _nest(tree: dict, key: str, value) -> None:
     tree[leaf] = value
 
 
-def params_from_jax(flat, *, device="cpu", dtype=None) -> dict:
+def params_from_jax(flat, *, device=None, dtype=None) -> dict:
     """Map a flattened JAX parameter tree onto the port's parameters.
 
     ``flat``: {tree path: numpy array or tensor}, e.g. from
@@ -53,7 +55,11 @@ def params_from_jax(flat, *, device="cpu", dtype=None) -> dict:
     a leading layer dim that is split into the per-layer dictionaries of
     ``params["blocks"]``.  ``dtype``, if given, casts every floating leaf
     except those the JAX package keeps in float32 (:data:`F32_LEAVES`).
+    ``device``: where the leaves go, the GPU unless the caller passes
+    ``device="cpu"`` (:func:`repro_torch.models.registry.resolve_device`).
     """
+    device = resolve_device(device)
+
     def tensor(key, a):
         t = torch.from_numpy(np.array(a)) if isinstance(a, np.ndarray) else a
         if (dtype is not None and t.is_floating_point()

@@ -31,10 +31,12 @@
 // cp.async, double-buffered; int8 tiles land as int8 with their f32 scales
 // and are dequantized to bf16 in shared memory, (k * scale) rounded to bf16
 // as the plain version rounds.  Pass 1 writes f32 partials (m, l, acc) per
-// query row and split to scratch the wrapper allocates.  Pass 2, one thread
-// per output element, merges a row's live splits by the log-sum-exp rule
-// (a split in which the row sees no key has l = 0 and m = -1e30 and adds
-// nothing) and writes q's dtype.
+// query row and split to scratch the wrapper allocates.  Pass 2
+// (split_merge.cuh, shared with paged_decode_attention.cu, launched as a
+// programmatic dependent of pass 1), one thread per output element, merges
+// a row's live splits by the log-sum-exp rule (a split in which the row
+// sees no key has l = 0 and m = -1e30 and adds nothing) and writes q's
+// dtype.
 //
 // f32 design (q f32; pages f32 or int8; exact FMA, so float32 results track
 // the CPU closely): one block per (row b, kv head, tile of 16 query rows)
@@ -52,11 +54,13 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
 using repro_mma::kNegInf;
 using repro_mma::ld_bf16;
+using repro_split::live_pages;
 constexpr int kThreads = 128;
 constexpr int kRowsPerBlock = 16;
 
@@ -183,16 +187,6 @@ paged_mixed_attention_kernel(const float* __restrict__ q,           // (B, T, Hq
 
 constexpr int kKT = 32;          // keys per staged tile
 constexpr int kMaxWarps = 8;     // query rows per block: up to 8 x 16
-constexpr int kMergeThreads = 256;
-
-// Pages [lo, hi) of a row that any of its T queries can see: the liveness
-// test of kernel.py (k_start < start + T and, with a window, k_start + ps - 1
-// >= start + 1 - window), capped at the table's n entries.
-__device__ __forceinline__ void live_pages(int start, int T, int ps, int n, int window,
-                                           int& lo, int& hi) {
-  hi = min(n, (start + T - 1) / ps + 1);
-  lo = window > 0 ? max(0, start + 1 - window) / ps : 0;
-}
 
 template <typename KV, int D>
 size_t smem_split(int rows_blk) {
@@ -226,6 +220,7 @@ paged_mixed_split_kernel(const __nv_bfloat16* __restrict__ q,    // (B, T, Hq, D
   const int kvh = blockIdx.y / row_tiles;
   const int r0 = (blockIdx.y % row_tiles) * kMaxWarps * 16;
   const int split = blockIdx.z;
+  repro_pdl::release_dependents();            // the merge may launch and wait
   const int group = Hq / Hkv;
   const int rows = T * group;
   const int nthr = blockDim.x;
@@ -369,39 +364,6 @@ paged_mixed_split_kernel(const __nv_bfloat16* __restrict__ q,    // (B, T, Hq, D
   }
 }
 
-// Pass 2: out[b, t, h, d] from the row's live splits, log-sum-exp merged.
-__global__ void __launch_bounds__(kMergeThreads)
-paged_mixed_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-                         const int32_t* __restrict__ starts, __nv_bfloat16* __restrict__ out,
-                         int T, int Hq, int Hkv, int D, int ps, int n, int window, int pps,
-                         int n_splits, float scale_log2) {
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  const int group = Hq / Hkv;
-  const int rows = T * group;
-  const int i = blockIdx.x * kMergeThreads + threadIdx.x;
-  if (i >= rows * D) return;
-  const int rr = i / D, d = i % D;
-  const int start = starts[b];
-  int plo, phi;
-  live_pages(start, T, ps, n, window, plo, phi);
-  float M = -INFINITY, L = 0.f, A = 0.f;
-  if (phi > plo) {
-    const size_t base = static_cast<size_t>(b * Hkv + kvh) * n_splits;
-    const int s_lo = plo / pps, s_hi = (phi - 1) / pps;
-    for (int s = s_lo; s <= s_hi; ++s) M = fmaxf(M, part_ml[2 * ((base + s) * rows + rr)]);
-    for (int s = s_lo; s <= s_hi; ++s) {
-      const size_t r = (base + s) * rows + rr;
-      // m is the split's max raw score; 0 for a split the row cannot see
-      const float w = exp2f((part_ml[2 * r] - M) * scale_log2);
-      L += part_ml[2 * r + 1] * w;
-      A += part_acc[r * D + d] * w;
-    }
-  }
-  const int t = rr / group, h = kvh * group + rr % group;
-  out[((static_cast<size_t>(b) * T + t) * Hq + h) * D + d] =
-      __float2bfloat16(A / fmaxf(L, 1e-30f));
-}
-
 template <typename KV, int D>
 cudaError_t launch_split(const void* q, const void* k, const void* v, const float* ks,
                          const float* vs, const int32_t* tbl, const int32_t* starts,
@@ -425,11 +387,8 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const floa
       window, scale_log2, pps, n_splits, row_tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid2((rows * D + kMergeThreads - 1) / kMergeThreads, Hkv, B);
-  paged_mixed_merge_kernel<<<grid2, kMergeThreads, 0, stream>>>(
-      part_ml, part_acc, starts, static_cast<__nv_bfloat16*>(out), T, Hq, Hkv, D, ps, n,
-      window, pps, n_splits, scale_log2);
-  return cudaGetLastError();
+  return repro_split::launch_split_merge(part_ml, part_acc, starts, 0, out, B, T, Hq, Hkv, D,
+                                         ps, n, window, pps, n_splits, scale_log2, stream);
 }
 
 template <typename KV>

@@ -10,8 +10,9 @@ lm-head epilogue (0 = one fused product, what the plain version does).
 * ``"cpu"`` is the JAX package's ``"cpu"`` row, so the CPU parity tests run
   the reference's shapes.
 * ``"cuda"`` starts from the same page, chunk and draft values and is not
-  yet swept on the card; its ``lmhead_block_v`` is the CUDA kernel's vocab
-  tile (``kTileV`` in ``csrc/lmhead_greedy.cu``).
+  yet swept on the card; its ``lmhead_block_v`` is the vocab tile of the
+  bf16 CUDA kernel the serving path runs (``kVT`` in
+  ``csrc/lmhead_greedy.cu``; its f32 instance walks tiles of 64).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ DEFAULTS = {
             "lmhead_block_v": 0},
     # not yet swept on the card
     "cuda": {"page_size": 16, "chunk_size": 16, "draft_len": 3,
-             "lmhead_block_v": 64},
+             "lmhead_block_v": 128},
 }
 
 

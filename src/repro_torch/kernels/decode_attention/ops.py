@@ -18,7 +18,10 @@ Counterparts of ``decode_attention``, ``decode_attention_mixed`` and
 * the one-query decode kernel ``csrc/paged_decode_attention.cu`` (the
   bucketed path's decode loop); :func:`paged_decode_attention_plain` is
   gather + ``_vector_mask`` + sdpa, the ``use_kernel=False`` branch of the
-  JAX ``lm.block_decode``.
+  JAX ``lm.block_decode``.  Its bf16 instance splits each row's live pages
+  as the mixed kernel does and merges the splits with the mixed kernel's
+  own pass 2 (``csrc/split_merge.cuh``);
+  :func:`paged_decode_attention_split_plain` is that arithmetic at T = 1.
 
 Each wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches the kernel or raises.
@@ -129,10 +132,10 @@ def paged_mixed_attention_split_plain(q, k_pages, v_pages, block_table, starts, 
     for b, start in enumerate(int(s) for s in starts.tolist()):
         lo, hi = live_pages(start, T, ps, n, window)
         qf = (q[b].float() * D ** -0.5).reshape(T, Hkv, group, D)
-        q_pos = start + torch.arange(T)[:, None]
+        q_pos = start + torch.arange(T, device=q.device)[:, None]
         parts = []
         for pa, pe in _split_runs(lo, hi, pages_per_split):
-            k_pos = torch.arange(pa * ps, pe * ps)[None, :]
+            k_pos = torch.arange(pa * ps, pe * ps, device=q.device)[None, :]
             valid = k_pos <= q_pos
             if window > 0:
                 valid &= k_pos > q_pos - window
@@ -159,6 +162,19 @@ def paged_decode_attention_plain(q1, k_pages, v_pages, block_table, lengths, *,
     k, v = _gather_kv(q1, k_pages, v_pages, block_table, k_scale, v_scale)
     mask = _vector_mask(k.shape[1], lengths.long() - 1, window)
     return sdpa(q1, k, v, mask)
+
+
+def paged_decode_attention_split_plain(q1, k_pages, v_pages, block_table, lengths, *,
+                                       window: int = -1, k_scale=None, v_scale=None,
+                                       pages_per_split: int = 1):
+    """Plain version of the bf16 decode kernel's two passes: the mixed
+    kernel's split arithmetic (:func:`paged_mixed_attention_split_plain`)
+    at T = 1 with ``starts = lengths - 1``, which is how the decode kernel
+    finds a row's live splits and how its pass 2 merges them."""
+    return paged_mixed_attention_split_plain(q1, k_pages, v_pages, block_table,
+                                             lengths - 1, window=window, k_scale=k_scale,
+                                             v_scale=v_scale,
+                                             pages_per_split=pages_per_split)
 
 
 def _check_pool(name, q, k_pages, v_pages, block_table, rows, k_scale, v_scale):
@@ -205,6 +221,22 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _split_scratch(name, q, k_pages, v_pages, B, Hkv, n, ps, rows, D):
+    """The bf16 split kernels' checks, plan and f32 partials: (pages per
+    split, splits, part_ml (B, Hkv, splits, rows, 2), part_acc (B, Hkv,
+    splits, rows, D))."""
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name}: bf16 head dim {D} unsupported (one of {_HEAD_DIMS})")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError(f"{name}: q and the page pools must be 16-byte aligned (the "
+                         "kernel copies 16 bytes at a time)")
+    pps = choose_pages_per_split(B, Hkv, n, ps, _sm_count(q.device.index or 0))
+    n_splits = -(-n // pps)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (pps, n_splits, torch.empty((B, Hkv, n_splits, rows, 2), **f32),
+            torch.empty((B, Hkv, n_splits, rows, D), **f32))
+
+
 def decode_attention_mixed(q, k_pages, v_pages, block_table, starts, *,
                            window: int | None = -1, k_scale=None, v_scale=None):
     """Mixed-span block-table attention over a paged KV pool.
@@ -236,19 +268,9 @@ def decode_attention_mixed(q, k_pages, v_pages, block_table, starts, *,
     pps = n_splits = 0
     part_ml = part_acc = None
     if q.dtype == torch.bfloat16:               # the split-K tensor-core kernel
-        if D not in _HEAD_DIMS:
-            raise ValueError(f"decode_attention_mixed: bf16 head dim {D} unsupported "
-                             f"(one of {_HEAD_DIMS})")
-        if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
-            raise ValueError("decode_attention_mixed: q and the page pools must be "
-                             "16-byte aligned (the kernel copies 16 bytes at a time)")
-        pps = choose_pages_per_split(B, Hkv, n, ps, _sm_count(q.device.index or 0))
-        n_splits = -(-n // pps)
-        rows = T * (Hq // Hkv)
-        part_ml = torch.empty((B, Hkv, n_splits, rows, 2), dtype=torch.float32,
-                              device=q.device)
-        part_acc = torch.empty((B, Hkv, n_splits, rows, D), dtype=torch.float32,
-                               device=q.device)
+        pps, n_splits, part_ml, part_acc = _split_scratch(
+            "decode_attention_mixed", q, k_pages, v_pages, B, Hkv, n, ps,
+            T * (Hq // Hkv), D)
     if not (B and T):
         return out
     err = _kernel()(
@@ -272,8 +294,8 @@ decode_attention_mixed.launches = 0     # kernel launches, for the chip smoke ru
 @functools.lru_cache(maxsize=None)
 def _decode_kernel():
     fn = build.load("paged_decode_attention").paged_decode_attention
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -287,8 +309,10 @@ def decode_attention_paged(q1, k_pages, v_pages, block_table, lengths, *,
     block_table: (B, n) int32 (logical page i of row b lives in physical page
     ``block_table[b, i]``; entries past a row's live pages may point
     anywhere); lengths: (B,) valid logical entries per row, the current
-    token included; ``window``: -1 or None = unlimited.  Returns
-    (B, 1, Hq, D) in q1's dtype.
+    token included; ``window``: -1 or None = unlimited.  The bf16 kernel
+    splits each row's pages as :func:`choose_pages_per_split` picks and
+    merges the splits with the mixed kernel's pass 2; the f32 kernel does
+    not split.  Returns (B, 1, Hq, D) in q1's dtype.
     """
     window = -1 if window is None else int(window)
     if not q1.is_cuda:
@@ -306,12 +330,22 @@ def decode_attention_paged(q1, k_pages, v_pages, block_table, lengths, *,
     tbl = block_table.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    n = tbl.shape[1]
+    pps = n_splits = 0
+    part_ml = part_acc = None
+    if q.dtype == torch.bfloat16:               # the split-K kernel
+        pps, n_splits, part_ml, part_acc = _split_scratch(
+            "decode_attention_paged", q, k_pages, v_pages, B, Hkv, n, ps, Hq // Hkv, D)
+    if not B:
+        return out
     err = _decode_kernel()(
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], q.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
         tbl.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, D, ps, tbl.shape[1], window, D ** -0.5,
+        None if part_ml is None else part_ml.data_ptr(),
+        None if part_acc is None else part_acc.data_ptr(),
+        B, Hq, Hkv, D, ps, n, window, D ** -0.5, pps, n_splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA error {err}")
@@ -409,4 +443,5 @@ __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_mixed", "paged_mixed_attention_plain",
            "paged_mixed_attention_split_plain", "split_plan",
            "choose_pages_per_split", "live_pages",
-           "decode_attention_paged", "paged_decode_attention_plain"]
+           "decode_attention_paged", "paged_decode_attention_plain",
+           "paged_decode_attention_split_plain"]

@@ -51,7 +51,7 @@ def smoke_pair(arch: str, *, kv: str = "native", seed: int = 0):
                              kv_cache_dtype=kv)
     jm = build_model(jc)
     jp = jm.init_params(jax.random.key(seed))
-    return jc, tc, jm, jp, params_from_jax(flatten_jax(jp))
+    return jc, tc, jm, jp, params_from_jax(flatten_jax(jp), device="cpu")
 
 
 def jax_tree_from_torch(params):

@@ -19,6 +19,7 @@ from repro_torch.kernels.decode_attention.ops import (
 from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
 from repro_torch.kernels.sampling.ops import (
     fused_lmhead_greedy, greedy_epilogue, greedy_epilogue_plain, lmhead_greedy_plain,
+    lmhead_greedy_walk_plain,
 )
 from repro_torch.kernels.ssd.ops import ssd_intra, ssd_intra_plain
 from repro_torch.models.attention import mha_decode
@@ -224,6 +225,175 @@ def test_paged_decode_kernel_matches_plain_and_mixed(dtype, window, ps):
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype), rtol=_tol(dtype))
     mixed = decode_attention_mixed(qt, *pages, tbl_t, lengths - 1, window=window, **sc)
     torch.testing.assert_close(out.float(), mixed.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+def _decode_args(dev, dtype, group, Hkv, D, ps, n, lengths, seed=0):
+    """bf16 q with bf16 or int8 pages of a seeded pool, the table, lengths."""
+    q, kp, vp, ks, vs, tbl, starts = mixed_inputs(group, dtype == "int8", T=1, Hkv=Hkv, D=D,
+                                                   ps=ps, n=n, starts=[x - 1 for x in lengths],
+                                                   seed=seed)
+    args = [torch.from_numpy(q).to(dev, torch.bfloat16)]
+    if dtype == "int8":
+        args += [torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)]
+        sc = dict(k_scale=torch.from_numpy(ks).to(dev), v_scale=torch.from_numpy(vs).to(dev))
+    else:
+        args += [torch.from_numpy(kp).to(dev, torch.bfloat16),
+                 torch.from_numpy(vp).to(dev, torch.bfloat16)]
+        sc = {}
+    args += [torch.from_numpy(tbl).to(dev), torch.from_numpy(starts).to(dev) + 1]
+    return args, sc
+
+
+def _check_decode_split(args, sc, window):
+    from repro_torch.kernels.decode_attention.ops import (
+        _sm_count, choose_pages_per_split, paged_decode_attention_split_plain)
+    before = decode_attention_paged.launches
+    out = decode_attention_paged(*args, window=window, **sc)
+    torch.cuda.synchronize()
+    assert decode_attention_paged.launches == before + 1       # both passes: one launch
+    assert torch.isfinite(out).all()
+    ref = paged_decode_attention_plain(*args, window=window, **sc)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    q, kp, _, tbl, _ = args
+    pps = choose_pages_per_split(q.shape[0], kp.shape[2], tbl.shape[1], kp.shape[1],
+                                 _sm_count(q.device.index or 0))
+    split = paged_decode_attention_split_plain(*args, window=window, pages_per_split=pps, **sc)
+    torch.testing.assert_close(out.float(), split.float(), atol=2e-2, rtol=2e-2)
+
+
+# lengths of the bucketed decode shape: 64 and 128 end on a split boundary
+# (4 pages of 16 a split), 1 holds one key, the rest end inside a page
+DECODE_LENGTHS = [64, 97, 1, 255, 128, 448, 512, 640]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [-1, 64, 7])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+def test_paged_decode_split_kernel_matches_plain(B, dtype, window):
+    """The bf16 split-K decode kernel at smollm-135m's decode shape (9/3
+    heads of 64, 16-token pages, a 64-entry table) for the power-of-two
+    batches the bucketed engine compacts to; window 7 starts inside a page,
+    64 on a page boundary."""
+    dev = require_cuda()
+    args, sc = _decode_args(dev, dtype, 3, 3, 64, 16, 64, DECODE_LENGTHS[:B], seed=B)
+    _check_decode_split(args, sc, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [-1, 100])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("Hq,Hkv,D", [(16, 2, 128), (8, 4, 256), (32, 32, 80), (4, 2, 16),
+                                      (6, 2, 32), (32, 2, 64), (24, 3, 64)])
+def test_paged_decode_split_kernel_head_shapes(Hq, Hkv, D, dtype, window):
+    """Every head dim the kernel is built for and groups 1 .. 16: qwen2.5-3b
+    (16 / 2 x 128), gemma3-4b (8 / 4 x 256), zamba2-2.7b's attention width
+    (32 / 32 x 80); groups 16 and 8 take several query-head tiles (two of 8
+    at bf16, four and two of 4 at int8)."""
+    dev = require_cuda()
+    args, sc = _decode_args(dev, dtype, Hq // Hkv, Hkv, D, 16, 32, [1, 100, 257, 512], seed=D)
+    _check_decode_split(args, sc, window)
+
+
+@pytest.mark.cuda
+def test_paged_decode_rejects_unsupported_bf16_inputs():
+    dev = require_cuda()
+    args, sc = _decode_args(dev, "bfloat16", 2, 2, 48, 16, 4, [5, 17])
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention_paged(*args, **sc)
+    args, sc = _decode_args(dev, "bfloat16", 2, 2, 64, 16, 4, [5, 17])
+    q = args[0]
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    args[0] = flat[1:].view(q.shape).copy_(q)                 # 2 bytes off 16
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention_paged(*args, **sc)
+
+
+def _lmhead_bf16(dev, N, d, V, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((N, d), generator=g, device=dev).bfloat16()
+    emb = (torch.randn((V, d), generator=g, device=dev) * 0.02).bfloat16()
+    return h, emb
+
+
+def _check_lmhead(h, w):
+    before = fused_lmhead_greedy.launches
+    tok, lp = fused_lmhead_greedy(h, w)
+    torch.cuda.synchronize()
+    assert fused_lmhead_greedy.launches == before + 1
+    tok_p, lp_p = lmhead_greedy_plain(h, w)
+    top2 = (h.float() @ w.float()).topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4             # summation order differs
+    assert clear.float().mean() > 0.9
+    assert torch.equal(tok[clear], tok_p[clear])
+    torch.testing.assert_close(lp, lp_p, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("N,d,V", [(128, 576, 49152), (130, 576, 4104), (8, 576, 49152),
+                                   (128, 2048, 151936), (256, 2048, 151936),
+                                   (130, 2560, 4104), (17, 48, 256)])
+def test_lmhead_bf16_kernel_widths_and_layouts(N, d, V, tied):
+    """The bf16 tensor-core lm-head at smollm-135m's (d 576, V 49152) and
+    qwen2.5-3b's widths (d 2048, V 151936; N 128 and 256, two row tiles),
+    d 2560, ragged N and V, and the smoke width d 48;
+    the tied head (``embed.T``) and the untied (d, V) one."""
+    dev = require_cuda()
+    h, emb = _lmhead_bf16(dev, N, d, V, seed=N + d)
+    _check_lmhead(h, emb.T if tied else emb.T.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V", [(130, 4099), (8, 151936)])
+def test_lmhead_bf16_ragged_vocab_tied(N, V):
+    """V off the 128-column tile and off 8 (tied head only): the last tile's
+    missing columns never enter the max or the sum."""
+    dev = require_cuda()
+    h, emb = _lmhead_bf16(dev, N, 576, V, seed=V)
+    _check_lmhead(h, emb.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("N", [16, 256])
+def test_lmhead_bf16_ties_across_blocks(N, tied):
+    """Exact maxima (integer inputs) in the tiles of two different
+    persistent blocks: the first maximal index wins, as in the plain
+    version and in the plain version of the kernel's walk."""
+    from repro_torch.kernels.sampling.ops import _kernel, _sm_count
+    dev = require_cuda()
+    d, V = 576, 49152
+    g = torch.Generator(device=dev).manual_seed(N)
+    h = torch.randint(-2, 3, (N, d), generator=g, device=dev).bfloat16()
+    emb = torch.randint(-1, 2, (V, d), generator=g, device=dev).bfloat16()
+    emb[200] = emb[40000] = torch.sign(h[0].float()).bfloat16()    # tiles 1 and 312
+    w = emb.T if tied else emb.T.contiguous()
+    tok, lp = fused_lmhead_greedy(h, w)
+    torch.cuda.synchronize()
+    tok_p, lp_p = lmhead_greedy_plain(h, w)
+    blocks = _kernel()[1](1, N, V, _sm_count(dev.index or 0))
+    assert (200 // 128) % blocks != (40000 // 128) % blocks      # two different blocks
+    tok_w, _ = lmhead_greedy_walk_plain(h, w, n_blocks=blocks)
+    assert tok[0].item() == 200
+    assert torch.equal(tok, tok_p) and torch.equal(tok, tok_w)
+    torch.testing.assert_close(lp, lp_p, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lmhead_bf16_rejects_unsupported_inputs():
+    dev = require_cuda()
+    h, emb = _lmhead_bf16(dev, 8, 24, 256, seed=0)
+    with pytest.raises(ValueError, match="unsupported"):
+        fused_lmhead_greedy(h, emb.T)                          # d % 16
+    h, emb = _lmhead_bf16(dev, 8, 64, 4099, seed=0)
+    with pytest.raises(ValueError, match="unsupported"):
+        fused_lmhead_greedy(h, emb.T.contiguous())             # untied, V % 8
+    flat = torch.empty(emb.numel() + 1, dtype=emb.dtype, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_lmhead_greedy(h, flat[1:].view(emb.shape).copy_(emb).T)
+    with pytest.raises(TypeError):
+        fused_lmhead_greedy(h, emb.T.float())
 
 
 @pytest.mark.cuda

@@ -28,6 +28,7 @@ from repro_torch.kernels.flash_attention.ops import (
 )
 from repro_torch.kernels.sampling.ops import (
     fused_lmhead_greedy, greedy_epilogue, greedy_epilogue_plain, lmhead_greedy_plain,
+    lmhead_greedy_walk_plain,
 )
 
 from _torch_helpers import flash_inputs, lmhead_inputs, logits_inputs, mixed_inputs
@@ -159,3 +160,68 @@ def test_greedy_epilogue_plain_matches_jax(kind):
         assert tok[0].item() == 3
     wrapped = greedy_epilogue(torch.from_numpy(x))
     assert torch.equal(wrapped[0], tok) and torch.equal(wrapped[1], lp)
+
+
+def _lmhead_jax(h, w):
+    """The Pallas lm-head kernel in interpret mode, two vocab blocks of 512."""
+    return (np.asarray(a) for a in lmhead_epilogue_fwd(jnp.asarray(h), jnp.asarray(w),
+                                                       block_v=512, interpret=True))
+
+
+@pytest.mark.parametrize("tile_v", [64, 128])
+@pytest.mark.parametrize("n_blocks", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("kind", ["normal", "tie"])
+def test_lmhead_walk_plain_matches_jax(kind, n_blocks, tile_v):
+    """The bf16 kernel's order of work -- block j walks vocab tiles j,
+    j + n_blocks, ..., one partial per block and row, partials folded with
+    equal maxima to the lower index -- against the Pallas kernel: tokens
+    equal, logprob within 1e-5.  The "tie" rows hold exact maxima at
+    columns 3, 997 and the row's own argmax, in different blocks."""
+    h, w = lmhead_inputs(kind)
+    tok_k, lp_k = _lmhead_jax(h, w)
+    tok, lp = lmhead_greedy_walk_plain(torch.from_numpy(h), torch.from_numpy(w),
+                                       n_blocks=n_blocks, tile_v=tile_v)
+    assert tok.dtype == torch.int32 and lp.dtype == torch.float32
+    np.testing.assert_array_equal(tok.numpy(), tok_k)
+    np.testing.assert_allclose(lp.numpy(), lp_k, atol=1e-5)
+    if kind == "tie":
+        assert tok[0].item() == 3
+
+
+@pytest.mark.parametrize("n_blocks", [2, 3])
+def test_lmhead_walk_ties_go_to_the_lower_index_across_blocks(n_blocks):
+    """An exact tie whose lower index sits in a later block than the higher
+    one (tiles of 64: column 70 in block 1, column 130 in block 0 or 2):
+    the fold must take 70, not the earlier partial's 130."""
+    rng = np.random.default_rng(9)
+    h = rng.integers(-2, 3, (5, 32)).astype(np.float32)
+    h[0, 0] = 2.0                                  # row 0's maximum is sum |h[0]|
+    w = rng.integers(-1, 2, (32, 999)).astype(np.float32)
+    w[:, 70] = w[:, 130] = w[:, 900] = np.sign(h[0])
+    logits = h @ w
+    assert int(np.argmax(logits[0])) == 70 and (logits[0] == logits[0, 70]).sum() >= 3
+    tok_k, lp_k = _lmhead_jax(h, w)
+    tok, lp = lmhead_greedy_walk_plain(torch.from_numpy(h), torch.from_numpy(w),
+                                       n_blocks=n_blocks, tile_v=64)
+    assert tok[0].item() == 70
+    np.testing.assert_array_equal(tok.numpy(), tok_k)
+    np.testing.assert_allclose(lp.numpy(), lp_k, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,V", [(3, 2048), (4, 4099), (2, 6000)])
+def test_greedy_epilogue_plain_ties_across_tiles_match_jax(B, V):
+    """The greedy epilogue, whose kernel shares the lm-head's fold: exact
+    maxima in different 2048-column tiles of the CUDA pass 1 (columns 5,
+    2050 when it exists, and V - 1) give the first, as the Pallas kernel
+    does with its own 2048-column blocks."""
+    x = np.random.default_rng(B).integers(-4, 5, (B, V)).astype(np.float32)
+    for col in (5, 2050, V - 1):
+        if col < V:
+            x[0, col] = 9.0
+    x[1, V - 1] = x[1, 0] = 9.0
+    tok_k, lp_k = (np.asarray(a) for a in greedy_epilogue_fwd(
+        jnp.asarray(x), block_v=2048, interpret=True))
+    tok, lp = greedy_epilogue_plain(torch.from_numpy(x))
+    np.testing.assert_array_equal(tok.numpy(), tok_k)
+    np.testing.assert_allclose(lp.numpy(), lp_k, atol=1e-5)
+    assert tok[0].item() == 5 and tok[1].item() == 0

@@ -94,7 +94,7 @@ def test_jax_checkpoint_carries_across_bit_exact(tmp_path):
         assert t.dtype == torch.bfloat16 and tuple(t.shape) == a.shape, key
         np.testing.assert_array_equal(t.view(torch.int16).numpy(),
                                       a.view(np.int16), err_msg=key)
-    params = params_from_jax(flat)
+    params = params_from_jax(flat, device="cpu")
     assert len(params["blocks"]) == cfg.n_layers
     np.testing.assert_array_equal(
         params["blocks"][2]["mlp"]["w_up"].view(torch.int16).numpy(),
@@ -115,7 +115,7 @@ def test_params_from_jax_nests_every_path_and_keeps_f32_leaves(tmp_path, arch):
     ref = flatten_jax(jp)
     flat = load_jax_npz(save_checkpoint(str(tmp_path / "ckpt_00000001.npz"), jp, step=1))
     for dtype in (None, torch.bfloat16, torch.float32):
-        params = params_from_jax(flat, dtype=dtype)
+        params = params_from_jax(flat, device="cpu", dtype=dtype)
         assert not any("/" in key for key in params)
         for key, a in ref.items():
             names = key.split("/")
@@ -130,7 +130,7 @@ def test_params_from_jax_nests_every_path_and_keeps_f32_leaves(tmp_path, arch):
             np.testing.assert_array_equal(node.float().numpy(),
                                           np.asarray(want, np.float32), err_msg=key)
     if arch == "zamba2-2.7b":
-        params = params_from_jax(flat, dtype=torch.bfloat16)
+        params = params_from_jax(flat, device="cpu", dtype=torch.bfloat16)
         assert params["shared_attn"]["mlp"]["w_gate"].dtype == torch.bfloat16
         assert params["blocks"][0]["A_log"].dtype == torch.float32
 
@@ -162,6 +162,17 @@ def test_build_model_needs_gpu_or_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg, device="cuda")
     assert build_model(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_params_from_jax_needs_gpu_or_explicit_cpu(monkeypatch):
+    """The checkpoint loader places the weights on the card by default, as
+    build_model does: without a GPU it raises unless asked for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flat = {"embed": torch.zeros(4, 2), "blocks/wq": torch.zeros(3, 2, 2)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax(flat)
+    params = params_from_jax(flat, device="cpu")
+    assert params["embed"].device == torch.device("cpu") and len(params["blocks"]) == 3
 
 
 def test_forward_refuses_cuda_tensors(monkeypatch):

@@ -1,10 +1,13 @@
 """PyTorch port: the split-K arithmetic of the bf16 paged mixed-attention
-kernel, the flash kernel's head dim 80, and zamba2 at head dim 80, against
-the JAX package on the CPU at float32.
+and paged decode-attention kernels, the flash kernel's head dim 80, and
+zamba2 at head dim 80, against the JAX package on the CPU at float32.
 
 * :func:`paged_mixed_attention_split_plain` (partials per run of pages,
   then the log-sum-exp merge) against the one-pass plain version and the
   JAX ``decode_attention_mixed`` (Pallas kernel in interpret mode);
+* :func:`paged_decode_attention_split_plain` (the same arithmetic at T = 1,
+  reached through the decode signature) against the JAX
+  ``paged_decode_attention_fwd`` (interpret mode) at every split size;
 * :func:`split_plan` covers every live page of a row exactly once and never
   a dead one;
 * ``flash_attention_plain`` at D = 80 against the JAX ``flash_attention_fwd``
@@ -16,6 +19,7 @@ the JAX package on the CPU at float32.
 Tolerances: 2e-5 for the attention functions, as tests/test_kernels.py;
 1e-5 for the model's logits."""
 import dataclasses
+import functools
 from functools import partial
 
 import jax
@@ -24,12 +28,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.decode_attention.kernel import paged_decode_attention_fwd
 from repro.kernels.decode_attention.ops import decode_attention_mixed as jax_mixed
 from repro.kernels.flash_attention.kernel import flash_attention_fwd
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.models import mamba_lm as jax_mamba_lm
 from repro_torch.kernels.decode_attention.ops import (
-    choose_pages_per_split, live_pages, paged_mixed_attention_plain,
+    _split_runs, choose_pages_per_split, live_pages, paged_decode_attention_plain,
+    paged_decode_attention_split_plain, paged_mixed_attention_plain,
     paged_mixed_attention_split_plain, split_plan,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
@@ -112,6 +118,61 @@ def test_split_plain_at_serving_page_size(group, T, window):
                                             pages_per_split=pps)
     plain = paged_mixed_attention_plain(t[0], t[1], t[2], t[5], t[6], window=window)
     np.testing.assert_allclose(out.numpy(), plain.numpy(), **ATT_TOL)
+
+
+# rows of the decode tests: lengths 1 (one key: every other split of the row
+# holds none), 8 and 16 (the live range ends on a page and on a split
+# boundary at 2 and 4 pages a split), 14 and 24 (the whole 6-page table)
+DECODE_LENGTHS = [1, 8, 14, 16, 24]
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_case(int8: bool, window: int):
+    """Inputs (4-token pages, a 6-entry table, group 3) and the JAX Pallas
+    decode kernel's output in interpret mode."""
+    q, kp, vp, ks, vs, tbl, starts = mixed_inputs(3, int8, T=1, n=6,
+                                                  starts=[x - 1 for x in DECODE_LENGTHS])
+    lengths = starts + 1
+    j = [None if a is None else jnp.asarray(a) for a in (q[:, 0], kp, vp, ks, vs, tbl, lengths)]
+    ref = np.asarray(paged_decode_attention_fwd(j[0], j[1], j[2], j[5], j[6],
+                                                jnp.array([window], jnp.int32),
+                                                k_scale=j[3], v_scale=j[4], interpret=True))
+    return (q, kp, vp, ks, vs, tbl, lengths), ref
+
+
+@pytest.mark.parametrize("pps", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("window", [-1, 3, 8])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_split_plain_matches_jax_decode_kernel(int8, window, pps):
+    """The bf16 decode kernel's two passes (pass 1 per split of ``pps``
+    pages, the mixed kernel's merge) against the Pallas decode kernel, at
+    every split size from one page to the whole table: window 3 starts
+    inside a page, window 8 on a page boundary."""
+    arrays, ref = _decode_case(int8, window)
+    q, kp, vp, ks, vs, tbl, lengths = _torch(arrays)
+    sc = dict(k_scale=ks, v_scale=vs)
+    out = paged_decode_attention_split_plain(q, kp, vp, tbl, lengths, window=window,
+                                             pages_per_split=pps, **sc)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy()[:, 0], ref, **ATT_TOL)
+    plain = paged_decode_attention_plain(q, kp, vp, tbl, lengths, window=window, **sc)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), **ATT_TOL)
+
+
+def test_decode_split_runs_hold_only_live_keys():
+    """The decode kernel's live ranges at T = 1 (``starts = lengths - 1``),
+    split at 2 pages a split: a row of one key has one live split, so every
+    other split of its row exits without reading; a live range ending on a
+    split boundary ends there."""
+    ps, n, pps = 4, 6, 2
+    runs = [_split_runs(*live_pages(x - 1, 1, ps, n, -1), pps) for x in DECODE_LENGTHS]
+    assert runs[0] == [(0, 1)]                        # length 1
+    assert runs[1] == [(0, 2)]                        # length 8: pages 0-1, split 0
+    assert runs[3] == [(0, 2), (2, 4)]                # length 16: ends on split 1's end
+    assert [p for lo, hi in runs[4] for p in range(lo, hi)] == list(range(6))
+    # window 8 (two pages) at length 16: keys 8..15, pages 2-3, split 1 alone
+    assert _split_runs(*live_pages(15, 1, ps, n, 8), pps) == [(2, 4)]
+    assert choose_pages_per_split(8, 3, 64, 16, 132) == 4   # the phase-3 decode shape
 
 
 # ---------------------------------------------------------------------------------
