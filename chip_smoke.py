@@ -18,9 +18,11 @@ Phases, each of which fails the run if it fails:
    gemma3-4b's head shapes, flash and paged mixed at zamba2-2.7b's; paged
    decode at the batches 1 .. 8 the bucketed engine compacts to and at
    split and window edges; the lm-head also untied, at qwen2.5-3b's width
-   and with ties across its persistent blocks), and time the kernel, the
-   plain version and a PyTorch library yardstick beside the least time the
-   card could take;
+   and with ties across its persistent blocks; the dense decode-attention
+   kernel also timed at gemma3-4b's local shape; the SSD kernel beside a
+   per-head and a per-group library call and the bound of each), and time
+   the kernel, the plain version and a PyTorch library yardstick beside the
+   least time the card could take;
 4. small end-to-end references: the smoke config at float32 served on the
    card (kernels) and on the CPU (plain versions) must emit identical
    tokens, on the chunked path and on the bucketed-prefill path; likewise
@@ -657,16 +659,23 @@ def check_greedy(dev, flush) -> dict:
 def check_ssd_intra(dev, flush) -> dict:
     """SSD intra-chunk term at mamba2-1.3b's width: 64 heads of 64, state
     128, chunk 256, one group (Bh/Ch an expand view over heads, as
-    ``ssd_chunked`` passes them).  Checked and timed at the shapes phase
-    5c's prefills give it (b 1, nc 1 and 2: prompts of 64 .. 512 tokens),
-    at the shape phase 5e's zamba2-2.7b prefills give it (b 4, nc 2, 80
-    heads of 64, state 64, expand view) and at a 2048-token prompt (nc 8),
-    which is the record's shape; plus a ragged smoke shape with two groups
-    (materialised by repeat_interleave).
-    f32 throughout; tolerance 1e-5 of the output's largest magnitude (f32
-    sums over up to q * n products in another order)."""
+    ``ssd_chunked`` passes them, so the kernel computes the scores once for
+    all heads).  Checked and timed at the shapes phase 5c's prefills give it
+    (b 1, nc 1 and 2: prompts of 64 .. 512 tokens), at the shape phase 5e's
+    zamba2-2.7b prefills give it (b 4, nc 2, 80 heads of 64, state 64,
+    expand view) and at a 2048-token prompt (nc 8), which is the record's
+    shape; plus a ragged smoke shape with two groups (materialised by
+    repeat_interleave, so a group a head).  Each is timed beside two
+    library calls: the JAX layout's (scores per head from the expanded
+    views) and the group-aware one (scores once from the group tensors,
+    broadcast over heads), and two bounds: the JAX layout's work (B and C
+    read, and C.B^T computed, once per head) and the work the inputs
+    require (once per group).  The record carries the group-aware bound
+    and library time.  f32 throughout; tolerance 1e-5 of the output's
+    largest magnitude (f32 sums over up to q * n products in another
+    order)."""
     import torch
-    from repro_torch.kernels.ssd.ops import ssd_intra, ssd_intra_plain
+    from repro_torch.kernels.ssd.ops import _groups, ssd_intra, ssd_intra_grids, ssd_intra_plain
 
     def inputs(b, nc, q, h, p, n, groups, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -690,13 +699,19 @@ def check_ssd_intra(dev, flush) -> dict:
     errs = {}
     for name, args in (*widths.items(),
                        ("ragged, 2 groups", inputs(2, 3, 40, 4, 16, 16, 2, SEED + 6))):
+        xb, _, Bh, Ch = args
+        b, nc, q, h, p = xb.shape
+        G = _groups(Bh, Ch)[2]
+        blocks1, blocks2 = ssd_intra_grids(b * nc, q, h, p, G)
         out = ssd_intra(*args)
         torch.cuda.synchronize()
         ref = ssd_intra_plain(*args)
         err = (out - ref).abs().max().item()
         tol = 1e-5 * ref.abs().max().item()
-        log(f"[kernels] ssd_intra {name} {tuple(args[0].shape)}: max |kernel - plain| = "
-            f"{err:.3e} (tol {tol:.3e})")
+        log(f"[kernels] ssd_intra {name} {tuple(xb.shape)}: {G} group(s) of {h // G} heads "
+            f"(from the head strides {Bh.stride(3)}, {Ch.stride(3)}): C.B^T computed "
+            f"{G} time(s) a chunk, {blocks1} score blocks then {blocks2} head blocks; "
+            f"max |kernel - plain| = {err:.3e} (tol {tol:.3e})")
         if not (err <= tol and torch.isfinite(out).all()):
             raise AssertionError(f"ssd_intra {name} disagrees with its plain version: {err}")
         errs[name] = err
@@ -705,31 +720,50 @@ def check_ssd_intra(dev, flush) -> dict:
         xb, acs, Bh, Ch = args
         b, nc, q, h, p = xb.shape
         n = Bh.shape[-1]
+        Bg, Cg, G = _groups(Bh, Ch)
         ms = timed_ms(lambda: ssd_intra(*args), flush=flush)
         plain_ms = timed_ms(lambda: ssd_intra_plain(*args), flush=flush)
         tri = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
+        a = acs.permute(0, 1, 3, 2)                                    # (b, nc, h, q)
+        xt = xb.permute(0, 1, 3, 2, 4)                                 # (b, nc, h, q, p)
 
-        def lib():
+        def lib_heads():
             scores = torch.matmul(Ch.permute(0, 1, 3, 2, 4), Bh.permute(0, 1, 3, 4, 2))
-            a = acs.permute(0, 1, 3, 2)                                # (b, nc, h, q)
             L = torch.where(tri, torch.exp(a[..., :, None] - a[..., None, :]), 0.0)
-            return torch.matmul(scores * L, xb.permute(0, 1, 3, 2, 4))  # (b, nc, h, q, p)
+            return torch.matmul(scores * L, xt)                        # (b, nc, h, q, p)
 
-        lib_err = (lib().permute(0, 1, 3, 2, 4) - ssd_intra_plain(*args)).abs().max().item()
-        library_ms = timed_ms(lib, flush=flush)
-        # least time: the JAX layout's bytes (Bh and Ch materialised per
-        # head), each read once, y written once; flops: C.B and P.x over the
-        # causal pairs, f32 on the CUDA cores (the JAX function is f32 end
-        # to end)
-        bc = b * nc
-        n_bytes = 4 * (2 * bc * q * h * p + bc * q * h + 2 * bc * q * h * n)
-        flops = 2.0 * (n + p) * bc * h * (q * (q + 1) // 2)
+        def lib_group():        # one group: (b, nc, 1, q, q) scores broadcast over heads
+            scores = torch.matmul(Cg.permute(0, 1, 3, 2, 4), Bg.permute(0, 1, 3, 4, 2))
+            L = torch.where(tri, torch.exp(a[..., :, None] - a[..., None, :]), 0.0)
+            return torch.matmul(scores * L, xt)
+
+        ref = ssd_intra_plain(*args)
+        lib_err = max((f().permute(0, 1, 3, 2, 4) - ref).abs().max().item()
+                      for f in (lib_heads, lib_group))
+        heads_ms = timed_ms(lib_heads, flush=flush)
+        library_ms = timed_ms(lib_group, flush=flush)
+        # least time: each input read once and y written once; flops: C.B
+        # and P.x over the causal pairs, f32 on the CUDA cores (the JAX
+        # function is f32 end to end).  The JAX layout charges B, C and C.B
+        # once per head; the inputs require them once per group.
+        bc, pairs = b * nc, q * (q + 1) // 2
+        xy_bytes = 4 * (2 * bc * q * h * p + bc * q * h)
+        heads_b_ms, heads_by = bound_ms(xy_bytes + 4 * 2 * bc * q * h * n,
+                                        2.0 * (n + p) * bc * h * pairs, F32_FLOPS_PER_S)
+        n_bytes = xy_bytes + 4 * 2 * bc * q * G * n
+        flops = 2.0 * n * bc * G * pairs + 2.0 * p * bc * h * pairs
         b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
         log(f"[kernels] ssd_intra f32 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"two matmuls + masked exp {library_ms:.4f} ms (|library - plain| {lib_err:.2e}), "
-            f"bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at "
-            f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s f32; {n_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
-            f"for the bytes alone)")
+            f"library per head {heads_ms:.4f} ms, library per group {library_ms:.4f} ms "
+            f"(two matmuls + masked exp; |library - plain| {lib_err:.2e}); bound per group "
+            f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), bound "
+            f"in the JAX layout {heads_b_ms:.5f} ms ({heads_by}: "
+            f"{(xy_bytes + 8 * bc * q * h * n) / 1e6:.2f} MB, "
+            f"{2.0 * (n + p) * bc * h * pairs / 1e9:.3f} GFLOP), at 3.35 TB/s and "
+            f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s f32")
+        log(f"[kernels] ssd_intra f32 {name}: kernel/library per head {ms / heads_ms:.3f}, "
+            f"per group {ms / library_ms:.3f}; bound/kernel {100 * b_ms / ms:.1f}% (per "
+            f"group), {100 * heads_b_ms / ms:.1f}% (JAX layout)")
     return {"name": "ssd_intra", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_intra.cu",
             "replaces": "src/repro/kernels/ssd/kernel.py:37",
@@ -749,9 +783,9 @@ def check_dense_decode(dev, flush) -> dict:
     """Dense decode attention at zamba2-2.7b's shared-attention shape (B 8,
     S 4096, 32 / 32 heads of 80, pos 3000), at gemma3-4b's local layers
     (8 / 4 heads of 256, window 1024) and at an unaligned pos of 17.  f32
-    at 1e-4 on the first two; bf16 on all three at :func:`bf16_tol`."""
+    at 1e-4 on the first two; bf16 on all three at :func:`bf16_tol`.  The
+    bf16 kernel is timed at the first two (the record: zamba2's)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
 
@@ -785,33 +819,56 @@ def check_dense_decode(dev, flush) -> dict:
         errs[name] = err
         del args, out, ref
 
-    q, k, v = (t.bfloat16() for t in zamba)
+    rec = dense_decode_timing(dev, flush, "zamba2", *(t.bfloat16() for t in zamba), 3000, None)
+    dense_decode_timing(dev, flush, "gemma3 local", *(t.bfloat16() for t in gemma), 3000, 1024)
     del zamba, gemma
+    return {"name": "dense_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dense_decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:68",
+            "max_abs_err": errs["zamba2 bf16"], **rec}
+
+
+def dense_decode_timing(dev, flush, shape, q, k, v, pos, window) -> dict:
+    """The bf16 dense kernel at one shape: its time, its plain version's,
+    sdpa's over the visible span, and its bound; prints them with the split
+    plan."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        _dense_span, _sm_count, choose_dense_pages_per_split, decode_attention,
+        decode_attention_plain, dense_live_pages)
+
     B, S, Hkv, D = k.shape
-    Hq, pos = q.shape[2], 3000
-    ms = timed_ms(lambda: decode_attention(q, k, v, pos), flush=flush)
-    plain_ms = timed_ms(lambda: decode_attention_plain(q, k, v, pos), flush=flush)
-    qt, kt, vt = q.transpose(1, 2), k[:, :pos].transpose(1, 2), v[:, :pos].transpose(1, 2)
+    Hq = q.shape[2]
+    w = window or -1
+    lo, hi = _dense_span(S, pos, w)
+    ms = timed_ms(lambda: decode_attention(q, k, v, pos, window=window), flush=flush)
+    plain_ms = timed_ms(lambda: decode_attention_plain(q, k, v, pos, window=w), flush=flush)
+    qt, kt, vt = q.transpose(1, 2), k[:, lo:hi].transpose(1, 2), v[:, lo:hi].transpose(1, 2)
 
     def lib():
         return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=Hq != Hkv)
 
     lib_err = (lib().transpose(1, 2).float()
-               - decode_attention_plain(q, k, v, pos).float()).abs().max().item()
+               - decode_attention_plain(q, k, v, pos, window=w).float()).abs().max().item()
     library_ms = timed_ms(lib, flush=flush)
-    # least time: the K and V of the live positions read once, q read and
-    # out written once; flops: QK^T and PV over the live keys
-    n_bytes = 2 * B * pos * Hkv * D * 2 + 2 * q.numel() * 2
-    flops = 4.0 * B * Hq * pos * D
+    # least time: the K and V of the visible positions read once, q read and
+    # out written once; flops: QK^T and PV over the visible keys
+    n_bytes = 2 * B * (hi - lo) * Hkv * D * 2 + 2 * q.numel() * 2
+    flops = 4.0 * B * Hq * (hi - lo) * D
     b_ms, b_by = bound_ms(n_bytes, flops)
-    log(f"[kernels] dense_decode_attention bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa over the live prefix {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), "
-        f"bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
-    return {"name": "dense_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/dense_decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention/kernel.py:68",
-            "max_abs_err": errs["zamba2 bf16"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+    pps = choose_dense_pages_per_split(B, Hkv, S, pos, w, _sm_count(0))
+    plo, phi = dense_live_pages(S, pos, w)
+    live = (phi - 1) // pps - plo // pps + 1
+    log(f"[kernels] dense_decode_attention bf16 {shape} (B {B}, S {S}, {Hq}/{Hkv} x {D}, pos "
+        f"{pos}, window {window}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over "
+        f"the visible span {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), bound "
+        f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP); "
+        f"kernel/library {ms / library_ms:.3f}, kernel/bound {ms / b_ms:.2f}; split plan "
+        f"{pps} pages of 64 keys a split, {live} live splits, {B * Hkv * live} pass-1 blocks")
+    log(f"[kernels] dense_decode_attention bf16 {shape} device time by kernel: "
+        f"{device_us(lambda: decode_attention(q, k, v, pos, window=window), flush=flush)}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------------------------
@@ -1081,21 +1138,41 @@ def ssm_prefill_profile(dev, model, params, path_wall_s: float) -> None:
         prefills()
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    ssd = [r for r in rows if "ssd_intra_kernel" in r[2]]
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ssd = [e for e in kernels if "ssd_intra" in e.name]
     if not ssd:
         log("[ssm prefill] the profiler reported no ssd_intra device time: not measured")
         return
-    busy_ms = sum(r[0] for r in rows)
-    ssd_ms, ssd_n = sum(r[0] for r in ssd), sum(r[1] for r in ssd)
+    # the device time of a set of kernels is the union of their spans: the
+    # SSD kernel's second pass starts (and waits) while its first runs
+    busy_ms, ssd_ms = union_ms(kernels), union_ms(ssd)
+    by_pass = {k: sum(1 for e in ssd if k in e.name)
+               for k in ("ssd_intra_scores_kernel", "ssd_intra_apply_kernel")}
+    calls = max(by_pass.values())
     log(f"[ssm prefill] phase 5c's 16 prefills ({sum(p.shape[1] for p in prompts)} prompt "
         f"tokens, nc 1-2 of chunk {model.cfg.ssm.chunk}): wall {wall_ms:.2f} ms unprofiled, "
-        f"device busy {busy_ms:.2f} ms; ssd_intra x{ssd_n} {ssd_ms:.3f} ms device "
-        f"({1e3 * ssd_ms / ssd_n:.1f} us a launch, {100 * ssd_ms / busy_ms:.1f}% of the "
-        f"prefills' device time, {100 * ssd_ms / (1e3 * path_wall_s):.2f}% of phase 5c's "
-        f"{path_wall_s:.3f} s wall)")
+        f"device busy {busy_ms:.2f} ms (union of kernel spans); ssd_intra x{calls} calls "
+        f"({', '.join(f'{k} x{v}' for k, v in by_pass.items())}) "
+        f"{ssd_ms:.3f} ms device ({1e3 * ssd_ms / calls:.1f} us a call, "
+        f"{100 * ssd_ms / busy_ms:.1f}% of the prefills' device time, "
+        f"{100 * ssd_ms / (1e3 * path_wall_s):.2f}% of phase 5c's {path_wall_s:.3f} s wall)")
     for dev_ms, count, key in sorted(rows, reverse=True)[:6]:
         log(f"[ssm prefill]   {dev_ms:9.3f} ms {100 * dev_ms / busy_ms:5.1f}%  x{count:<6d} "
             f"{key[:80]}")
+
+
+def union_ms(events) -> float:
+    """Total time covered by the profiler events' spans, in ms."""
+    total, end = 0.0, None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        lo, hi = e.time_range.start, e.time_range.end
+        if end is None or lo > end:
+            total += hi - lo
+            end = hi
+        elif hi > end:
+            total += hi - end
+            end = hi
+    return total / 1e3
 
 
 def _leaves(tree):

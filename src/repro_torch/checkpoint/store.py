@@ -33,6 +33,15 @@ def load_jax_npz(path: str) -> dict[str, torch.Tensor]:
     return flat
 
 
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor copy of ``a``; a bf16 array (``ml_dtypes.bfloat16``, as
+    ``np.asarray`` of a JAX bf16 leaf gives) goes across bit-exactly through
+    its int16 view, without importing ``ml_dtypes``."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 # leaves the JAX package keeps in float32 whatever ``cfg.dtype`` is (the
 # Mamba-2 layer's decay, skip and step-bias vectors, ``mamba_lm.py``)
 F32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
@@ -61,7 +70,7 @@ def params_from_jax(flat, *, device=None, dtype=None) -> dict:
     device = resolve_device(device)
 
     def tensor(key, a):
-        t = torch.from_numpy(np.array(a)) if isinstance(a, np.ndarray) else a
+        t = _from_numpy(a) if isinstance(a, np.ndarray) else a
         if (dtype is not None and t.is_floating_point()
                 and key.rsplit("/", 1)[-1] not in F32_LEAVES):
             t = t.to(dtype)

@@ -22,22 +22,29 @@ __device__ __forceinline__ void wait_for_primary() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// kernel<<<grid, block, 0, stream>>>(args...), allowed to start while the
+// kernel<<<grid, block, smem, stream>>>(args...), allowed to start while the
 // kernel before it on the stream still runs
 template <typename... Params, typename... Args>
-cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
-                             cudaStream_t stream, Args... args) {
+cudaError_t launch_dependent_smem(void (*kernel)(Params...), dim3 grid, dim3 block,
+                                  size_t smem, cudaStream_t stream, Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = block;
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// the same with no dynamic shared memory
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
+                             cudaStream_t stream, Args... args) {
+  return launch_dependent_smem(kernel, grid, block, 0, stream, args...);
 }
 
 }  // namespace repro_pdl

@@ -1,9 +1,11 @@
-// Pass 2 of the split-K paged attention kernels (sm_90a): the log-sum-exp
-// merge of per-split partials, shared by the bf16 instances of
-// paged_mixed_attention.cu and paged_decode_attention.cu.  Each .cu builds
-// into its own library, so each includes this header once.
+// Pass 2 of the split-K attention kernels (sm_90a): the log-sum-exp merge of
+// per-split partials, shared by the bf16 instances of
+// paged_mixed_attention.cu, paged_decode_attention.cu and
+// dense_decode_attention.cu (a dense cache is a paged one whose table is
+// the identity).  Each .cu builds into its own library, so each includes
+// this header once.
 //
-// Pass 1 of either kernel runs one block per (row b, kv head, split), a
+// Pass 1 of each kernel runs one block per (row b, kv head, split), a
 // split being pages_per_split consecutive table entries of the row, and
 // writes f32 partials per query row r = t * group + g (T queries of the
 // kv head's group; T = 1 for decode):
@@ -12,7 +14,8 @@
 //   part_acc (B, Hkv, n_splits, T * group, D): sum p * v, unnormalised;
 // with p = exp2(s * scale_log2 - m * scale_log2), s the raw dot product and
 // scale_log2 = sm_scale * log2(e).  Only the row's live splits are written;
-// the merge reads exactly those, found from starts[b] as pass 1 found them.
+// the merge reads exactly those, found from starts[b] as pass 1 found them
+// (from start_bias alone when starts is null: every row at one position).
 // It is launched as a programmatic dependent of pass 1 (pdl.cuh): its
 // blocks start while pass 1 runs, find their row's live splits, and wait
 // for pass 1 to complete before they read a partial.
@@ -34,15 +37,17 @@ constexpr int kMergeThreads = 256;
 // start + T - 1) can see: the liveness test of kernel.py (k_start < start +
 // T and, with a window, k_start + ps - 1 >= start + 1 - window), capped at
 // the table's n entries.
-__device__ __forceinline__ void live_pages(int start, int T, int ps, int n, int window,
-                                           int& lo, int& hi) {
-  hi = min(n, (start + T - 1) / ps + 1);
-  lo = window > 0 ? max(0, start + 1 - window) / ps : 0;
+__host__ __device__ __forceinline__ void live_pages(int start, int T, int ps, int n, int window,
+                                                    int& lo, int& hi) {
+  const int last = (start + T - 1) / ps + 1, first = start + 1 - window;
+  hi = last < n ? last : n;
+  lo = window > 0 ? (first > 0 ? first : 0) / ps : 0;
 }
 
 // out[b, t, h, d] from the row's live splits, log-sum-exp merged.  The
-// row's first query sits at starts[b] + start_bias (the decode kernel
-// passes its lengths with bias -1).
+// row's first query sits at starts[b] + start_bias (the paged decode kernel
+// passes its lengths with bias -1), or at start_bias when starts is null
+// (the dense decode kernel: pos - 1 for every row).
 __global__ void __launch_bounds__(kMergeThreads)
 paged_split_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
                          const int32_t* __restrict__ starts, int start_bias,
@@ -54,7 +59,7 @@ paged_split_merge_kernel(const float* __restrict__ part_ml, const float* __restr
   const int i = blockIdx.x * kMergeThreads + threadIdx.x;
   if (i >= rows * D) return;
   const int rr = i / D, d = i % D;
-  const int start = starts[b] + start_bias;
+  const int start = (starts != nullptr ? starts[b] : 0) + start_bias;
   int plo, phi;
   live_pages(start, T, ps, n, window, plo, phi);
   float M = -INFINITY, L = 0.f, A = 0.f;

@@ -7,7 +7,10 @@ Counterparts of ``decode_attention``, ``decode_attention_mixed`` and
   scalar ``pos`` over a dense (B, S, Hkv, D) cache, reached through
   ``attention.mha_decode(use_kernel=True)``);
   :func:`decode_attention_plain` is the masked sdpa of the JAX
-  ``mha_decode`` with the kernel's rule for a row with no visible key;
+  ``mha_decode`` with the kernel's rule for a row with no visible key.
+  Its bf16 instance splits the visible keys into runs of 64-key "pages"
+  (:func:`choose_dense_pages_per_split`) and merges them with the paged
+  kernels' pass 2; :func:`decode_attention_split_plain` is that arithmetic;
 * the mixed-span kernel ``csrc/paged_mixed_attention.cu`` (T queries per
   row, the chunked path); :func:`paged_mixed_attention_plain` is gather +
   span mask + sdpa, the ``use_kernel=False`` branch of the JAX
@@ -380,11 +383,73 @@ def decode_attention_plain(q1, k_cache, v_cache, pos, *, window: int = -1):
     return sdpa(q1, k_cache, v_cache, valid[None, :])
 
 
+# the bf16 dense kernel's split-K plan: a dense cache is a paged cache whose
+# block table is the identity, ``DENSE_SPLIT_KEYS`` keys a page
+DENSE_SPLIT_KEYS = 64
+DENSE_SPLIT_WAVES = 16       # pass-1 blocks the plan aims for, in blocks per SM
+
+
+def dense_live_pages(S: int, pos: int, window: int) -> tuple[int, int]:
+    """Pages ``[lo, hi)`` of :data:`DENSE_SPLIT_KEYS` keys that the query at
+    ``pos - 1`` can see: :func:`live_pages` at T = 1, and for ``pos`` >= 1
+    exactly the pages of the dense span ``[max(pos - window, 0), pos)``."""
+    n = -(-S // DENSE_SPLIT_KEYS)
+    return live_pages(pos - 1, 1, DENSE_SPLIT_KEYS, n, window)
+
+
+def choose_dense_pages_per_split(B: int, Hkv: int, S: int, pos: int, window: int,
+                                 sm_count: int) -> int:
+    """Pages per split of the bf16 dense kernel: one page, doubled while
+    ``B * Hkv * live splits`` stays at or above :data:`DENSE_SPLIT_WAVES`
+    blocks per SM.  ``pos`` is a host integer, so the plan counts the live
+    keys without a host sync: B 8 x 32 kv heads at pos 3000 gives 4 pages
+    (12 live splits, 3072 blocks), 8 x 4 kv heads in a window of 1024 gives
+    1 page (17 live splits, 544 blocks)."""
+    lo, hi = dense_live_pages(S, pos, window)
+    live = max(hi - lo, 1)
+    pps = 1
+    while pps < live and B * Hkv * -(-live // (2 * pps)) >= DENSE_SPLIT_WAVES * sm_count:
+        pps *= 2
+    return pps
+
+
+def decode_attention_split_plain(q1, k_cache, v_cache, pos, *, window: int = -1,
+                                 pages_per_split: int = 1):
+    """Plain version of the bf16 dense kernel's two passes: per row and
+    split of ``pages_per_split`` pages of :data:`DENSE_SPLIT_KEYS` keys, f32
+    partials ``(m, l, acc)`` over the split's visible keys, then the
+    log-sum-exp merge.  A row with no visible key gives zeros.  Nothing on
+    the serving path calls it."""
+    pos, window = int(pos), int(window)
+    B, _, Hq, D = q1.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    group = Hq // Hkv
+    ps = DENSE_SPLIT_KEYS
+    klo, khi = _dense_span(S, pos, window)
+    qf = (q1[:, 0].float() * D ** -0.5).reshape(B, Hkv, group, D)
+    parts = []
+    for pa, pe in _split_runs(*dense_live_pages(S, pos, window), pages_per_split):
+        a, e = max(pa * ps, klo), min(pe * ps, khi)
+        if e <= a:
+            continue
+        sc = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache[:, a:e].float())
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        parts.append((m, p.sum(-1), torch.einsum("bhgk,bkhd->bhgd", p,
+                                                 v_cache[:, a:e].float())))
+    if not parts:
+        return torch.zeros_like(q1)
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = sum(l_ * torch.exp(m - M) for m, l_, _ in parts)
+    A = sum(acc * torch.exp(m - M)[..., None] for m, _, acc in parts)
+    return (A / L.clamp_min(1e-30)[..., None]).reshape(B, 1, Hq, D).to(q1.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _dense_kernel():
     fn = build.load("dense_decode_attention").dense_decode_attention
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -398,7 +463,10 @@ def decode_attention(q1, k_cache, v_cache, pos, *, window: int | None = None,
     written at ``pos - 1``), an int or a 0-d tensor shared by every row;
     ``window``: sliding-window width, falsy = none.  ``block_k`` is the TPU
     kernel's key-tile width, accepted for signature parity; the CUDA kernel
-    picks its own chunk.  Returns (B, 1, Hq, D) in q1's dtype.
+    picks its own tiles.  The bf16 kernel splits the visible keys as
+    :func:`choose_dense_pages_per_split` picks and merges the splits with
+    the paged kernels' pass 2; the f32 kernel does not split.  Returns
+    (B, 1, Hq, D) in q1's dtype.
     """
     window = int(window) if window else -1
     pos = int(pos)
@@ -422,13 +490,25 @@ def decode_attention(q1, k_cache, v_cache, pos, *, window: int | None = None,
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()) or (
             k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16):
         raise ValueError("decode_attention: caches must be contiguous and 16-byte "
-                         "aligned (the kernel stages rows with 16-byte copies)")
+                         "aligned (the kernel reads rows with 16-byte loads)")
     q = q1.contiguous()
     out = torch.empty_like(q)
+    pps, part_ml, part_acc = 0, None, None
+    if q.dtype == torch.bfloat16:               # the split-K kernel
+        if q.data_ptr() % 16:
+            raise ValueError("decode_attention: q must be 16-byte aligned")
+        pps = choose_dense_pages_per_split(B, Hkv, S, pos, window,
+                                           _sm_count(q.device.index or 0))
+        n_pages = -(-S // DENSE_SPLIT_KEYS)
+        n_splits = -(-n_pages // pps)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, Hkv, n_splits, Hq // Hkv, 2), **f32)
+        part_acc = torch.empty((B, Hkv, n_splits, Hq // Hkv, D), **f32)
     if B:
         err = _dense_kernel()(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), B, S, Hq, Hkv, D, pos, window, D ** -0.5,
+            out.data_ptr(), *(None if t is None else t.data_ptr() for t in (part_ml, part_acc)),
+            B, S, Hq, Hkv, D, pos, window, D ** -0.5, pps,
             torch.cuda.current_stream(q.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"dense_decode_attention launch failed: CUDA error {err}")
@@ -439,7 +519,8 @@ def decode_attention(q1, k_cache, v_cache, pos, *, window: int | None = None,
 decode_attention.launches = 0           # kernel launches, for the chip smoke run
 
 
-__all__ = ["decode_attention", "decode_attention_plain",
+__all__ = ["decode_attention", "decode_attention_plain", "decode_attention_split_plain",
+           "choose_dense_pages_per_split", "dense_live_pages",
            "decode_attention_mixed", "paged_mixed_attention_plain",
            "paged_mixed_attention_split_plain", "split_plan",
            "choose_pages_per_split", "live_pages",

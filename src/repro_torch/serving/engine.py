@@ -86,6 +86,7 @@ class ServeConfig:
     max_batch: int = 8
     max_len: int = 1024
     eos_token: int = -1                # -1: run to max_new_tokens
+    greedy: bool = True                # read by neither package: both decode greedily
     paged: bool = True                 # paged KV cache (attention families)
     page_size: int | None = None       # None: per-device default (autotune)
     num_pages: int | None = None       # default: max_batch*(max_len/ps) + trash
@@ -98,6 +99,9 @@ class ServeConfig:
                                        # 0 disables speculation)
     proposer: str = "ngram"            # draft proposer kind (speculate.make_proposer)
     ngram: int = 2                     # n-gram order for the lookup proposer
+    lmhead_block_v: int | None = None  # the reference's fused lm-head vocab tile (None:
+                                       # autotune); stored, and ignored by the CUDA
+                                       # lm-head, which picks its own 128-column tiles
     # -- bucketed-prefill path (chunked_prefill=False) --
     bucket_max_wait: int = 4           # engine steps a partial bucket group may
                                        # wait for bucket-mates before flushing
@@ -154,6 +158,9 @@ class ServingEngine:
                      else autotune.default_draft_len(dev))
             self.spec_len = max(int(draft), 0)
             self.span = max(int(chunk), self.spec_len + 1, 1)
+            # stored as the reference stores it; the CUDA lm-head tiles by itself
+            self.lmhead_block_v = (cfg.lmhead_block_v if cfg.lmhead_block_v is not None
+                                   else autotune.default_lmhead_block_v(dev))
             self.proposer = (make_proposer(cfg.proposer, self.span - 1, ngram=cfg.ngram)
                              if self.span > 1 else None)
         else:

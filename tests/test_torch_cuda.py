@@ -13,15 +13,16 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention, decode_attention_mixed, decode_attention_paged,
-    decode_attention_plain, paged_decode_attention_plain, paged_mixed_attention_plain,
+    _sm_count, choose_dense_pages_per_split, decode_attention, decode_attention_mixed,
+    decode_attention_paged, decode_attention_plain, decode_attention_split_plain,
+    dense_live_pages, paged_decode_attention_plain, paged_mixed_attention_plain,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
 from repro_torch.kernels.sampling.ops import (
     fused_lmhead_greedy, greedy_epilogue, greedy_epilogue_plain, lmhead_greedy_plain,
     lmhead_greedy_walk_plain,
 )
-from repro_torch.kernels.ssd.ops import ssd_intra, ssd_intra_plain
+from repro_torch.kernels.ssd.ops import ssd_intra, ssd_intra_grouped_plain, ssd_intra_plain
 from repro_torch.models.attention import mha_decode
 
 from _torch_helpers import (
@@ -523,6 +524,59 @@ def test_ssd_intra_kernel_matches_plain(b, nc, q, h, p, n, groups, view):
     assert torch.isfinite(out).all()
     scale = ref.abs().max().item()
     torch.testing.assert_close(out, ref, atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [True, False])
+@pytest.mark.parametrize("b,nc,q,h,p,n,groups", [
+    (4, 2, 256, 80, 64, 64, 1),      # zamba2-2.7b's prefill (phase 5e)
+    (1, 1, 200, 64, 64, 128, 1),     # mamba2-1.3b, nc 1, q not a multiple of 64
+    (2, 3, 40, 4, 16, 16, 2),        # ragged, two materialised groups
+])
+def test_ssd_intra_kernel_matches_grouped_plain(b, nc, q, h, p, n, groups, view):
+    """Against the plain version of its two passes (scores once per group,
+    then each head's decay and P x), given the group tensors, and against
+    the one-pass plain version, at f32.  Tolerance: 1e-5 of the output's
+    largest magnitude (f32 sums in another order than cuBLAS's)."""
+    dev = require_cuda()
+    xb, acs, Bq, Cq = (torch.from_numpy(a).to(dev)
+                       for a in ssd_inputs(b, nc, q, h, p, n, groups))
+    rep = h // groups
+    if view and groups == 1:
+        Bh, Ch = Bq.expand(b, nc, q, h, n), Cq.expand(b, nc, q, h, n)
+    else:
+        Bh, Ch = Bq.repeat_interleave(rep, dim=3), Cq.repeat_interleave(rep, dim=3)
+    out = ssd_intra(xb, acs, Bh, Ch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    for ref in (ssd_intra_grouped_plain(xb, acs, Bq, Cq), ssd_intra_plain(xb, acs, Bh, Ch)):
+        scale = ref.abs().max().item()
+        torch.testing.assert_close(out, ref, atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,pos,window", [
+    (1, 4096, 2, 1, 64, 4000, None),     # B x Hkv = 1, far fewer than the splits
+    (1, 4096, 8, 4, 256, 3000, 1024),    # gemma3's local layers, one row
+    (2, 1000, 4, 2, 80, 999, 100),       # S not a multiple of the 64-key page
+])
+def test_dense_decode_split_kernel_matches_split_plain(B, S, Hq, Hkv, D, pos, window):
+    """The bf16 split-K kernel against the plain version of its two passes
+    at the split the wrapper picks, and against the one-pass plain version.
+    Tolerance: 2e-2, bf16 outputs of f32 sums."""
+    dev = require_cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in dense_decode_inputs(B, S, Hq, Hkv, D))
+    w = window or -1
+    pps = choose_dense_pages_per_split(B, Hkv, S, pos, w, _sm_count(0))
+    lo, hi = dense_live_pages(S, pos, w)
+    if B * Hkv == 1:
+        assert -(-hi // pps) - lo // pps > 1     # more splits than (row, kv head) pairs
+    out = decode_attention(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    for ref in (decode_attention_split_plain(q, k, v, pos, window=w, pages_per_split=pps),
+                decode_attention_plain(q, k, v, pos, window=w)):
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda
