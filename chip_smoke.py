@@ -20,9 +20,12 @@ Phases, each of which fails the run if it fails:
    split and window edges; the lm-head also untied, at qwen2.5-3b's width
    and with ties across its persistent blocks; the dense decode-attention
    kernel also timed at gemma3-4b's local shape; the SSD kernel beside a
-   per-head and a per-group library call and the bound of each), and time
-   the kernel, the plain version and a PyTorch library yardstick beside the
-   least time the card could take;
+   per-head and a per-group library call and the bound of each; the greedy
+   epilogue at every ported config's vocabulary, B 8 and 1, f32 and bf16,
+   strided and unaligned rows, timed with the L2 flushed and warm after the
+   matmul that writes its logits), and time the kernel, the plain version
+   and a PyTorch library yardstick beside the least time the card could
+   take;
 4. small end-to-end references: the smoke config at float32 served on the
    card (kernels) and on the CPU (plain versions) must emit identical
    tokens, on the chunked path and on the bucketed-prefill path; likewise
@@ -55,7 +58,8 @@ Phases, each of which fails the run if it fails:
 7. short profiled windows of the three serving paths (device time by
    kernel).
 
-The second-to-last line of stdout is the ``kernels`` JSON record, the last
+The second-to-last line of stdout is the ``kernels`` JSON record (the greedy
+epilogue's launches are phase 5b's plus phase 5c's), the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -107,11 +111,14 @@ def timed_ms(fn, *, reps: int = 20, flush=None) -> float:
     return total / reps
 
 
-def device_us(fn, *, reps: int = 20, flush=None) -> str:
-    """Mean device time of each kernel that ``fn()`` launches, from
-    torch.profiler over ``reps`` calls (each after ``flush()``), as
-    "name us; ..." with names cut to 40 characters; the flush's own fill
-    kernel is left out."""
+def kernel_spans(fn, *, reps: int = 20, flush=None):
+    """The kernels of one ``fn()`` call in launch order, each as (name, mean
+    device time in us), and the mean gap from each kernel's end to the next
+    one's start, from torch.profiler's device timestamps over ``reps`` calls
+    (each after ``flush()``, whose fill kernel is left out).  A programmatic
+    dependent's span includes its wait.  Where the calls do not launch the
+    same number of kernels, one mean per kernel name and no gaps; None if
+    the trace holds no kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -123,13 +130,40 @@ def device_us(fn, *, reps: int = 20, flush=None) -> str:
                 flush()
             fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / reps) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and "FillFunctor" not in e.key and "Memset" not in e.key]
-    if not rows:
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and "FillFunctor" not in e.name and "Memset" not in e.name),
+                 key=lambda e: e.time_range.start)
+    if not evs:
+        return None
+
+    def name(e):
+        return e.name.replace("void ", "").replace("(anonymous namespace)::", "")
+
+    if len(evs) % reps:
+        spans = {}
+        for e in evs:
+            spans[name(e)] = spans.get(name(e), 0.0) + e.time_range.elapsed_us() / reps
+        return list(spans.items()), []
+    k = len(evs) // reps
+    calls = [evs[i * k:(i + 1) * k] for i in range(reps)]
+    spans = [(name(calls[0][j]), sum(c[j].time_range.elapsed_us() for c in calls) / reps)
+             for j in range(k)]
+    gaps = [sum(c[j + 1].time_range.start - c[j].time_range.end for c in calls) / reps
+            for j in range(k - 1)]
+    return spans, gaps
+
+
+def device_us(fn, *, reps: int = 20, flush=None) -> str:
+    """:func:`kernel_spans` as "name us; ...; gaps us, ..." with names cut
+    to 40 characters."""
+    res = kernel_spans(fn, reps=reps, flush=flush)
+    if res is None:
         return "not measured (the profiler reported no device time)"
-    return "; ".join(f"{k.replace('void ', '').replace('(anonymous namespace)::', '')[:40]} "
-                     f"{us:.2f} us" for k, us in rows)
+    spans, gaps = res
+    text = "; ".join(f"{k[:40]} {us:.2f} us" for k, us in spans)
+    if gaps:
+        text += "; gaps " + ", ".join(f"{g:.2f}" for g in gaps) + " us"
+    return text
 
 
 def bound_ms(n_bytes: float, flops: float,
@@ -611,49 +645,134 @@ def check_paged_decode(dev, flush) -> dict:
             "library_ms": library_ms}
 
 
-def check_greedy(dev, flush) -> dict:
-    """greedy epilogue over the decode step's (8, 49152) f32 logits, plus a
-    case of exact ties."""
-    import torch
-    from repro_torch.kernels.sampling.ops import greedy_epilogue, greedy_epilogue_plain
+# (config, vocabulary, d_model): the greedy epilogue's rows at each ported config
+GREEDY_VOCABS = (("smollm-135m", 49152, 576), ("mamba2-1.3b", 50280, 2048),
+                 ("zamba2-2.7b", 32000, 2560), ("qwen2.5-3b", 151936, 2048),
+                 ("gemma3-4b", 262144, 2560))
 
-    B, V = 8, 49152
+
+def timed_after_ms(prep, fn, *, reps: int = 20) -> float:
+    """Mean device time of ``fn()`` run right after ``prep()`` on the stream,
+    as the serving loop runs the epilogue after the matmul that writes its
+    logits: the L2 cache holds what ``prep`` wrote.  The events bracket
+    ``fn`` only; the stream is held as in :func:`timed_ms`."""
+    import torch
+    for _ in range(3):
+        prep()
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda._sleep(HOLD_CYCLES)
+        prep()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def check_greedy(dev, flush) -> dict:
+    """Greedy epilogue: small vocabularies first (V 999 and 4099, B 1 and 9,
+    f32 and bf16, rows contiguous, strided as ``logits[:, -1]`` of a
+    (B, 3, V) tensor, and starting off a 16-byte boundary an odd stride
+    apart), exact ties inside a slice and across a slice boundary, then each
+    ported config's vocabulary at B 8 and 1 in f32 and bf16: tokens equal
+    to the plain version's, logprob within 1e-4.  Each of those is timed
+    with the L2 flushed and warm right after the ``torch.matmul`` that writes
+    its logits (the serving order), and its device time by kernel printed:
+    one kernel a call.  The record is (8, 49152) f32, flushed."""
+    import torch
+    from repro_torch.kernels.sampling.ops import (
+        _epilogue_kernel, _sm_count, greedy_cluster_plan, greedy_epilogue,
+        greedy_epilogue_plain, greedy_max_cluster)
+
+    active = _epilogue_kernel()[1]
+    max_c = greedy_max_cluster(0)
+    log(f"[kernels] greedy_epilogue: cudaOccupancyMaxActiveClusters {active(16)} clusters "
+        f"of 16 CTAs, {active(8)} of 8; the plan's largest cluster {max_c}")
+
+    def check(label, x, first=None):
+        tok, lp = greedy_epilogue(x)
+        torch.cuda.synchronize()
+        tok_p, lp_p = greedy_epilogue_plain(x)
+        err = (lp - lp_p).abs().max().item()
+        if not (torch.equal(tok, tok_p) and err <= 1e-4 and bool((lp <= 0).all())
+                and (first is None or int(tok[0]) == first)):
+            raise AssertionError(f"greedy_epilogue {label} disagrees with its plain version "
+                                 f"(max |lp - plain| {err:.3e})")
+        return err
+
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    x = torch.randn((B, V), generator=g, device=dev) * 3.0
-    tok, lp = greedy_epilogue(x)
-    torch.cuda.synchronize()
-    tok_p, lp_p = greedy_epilogue_plain(x)
-    err = (lp - lp_p).abs().max().item()
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for V in (999, 4099):
+        errs = []
+        for dt in dtypes.values():
+            for B in (1, 9):
+                full = (torch.randn((B, 3, V + 1), generator=g, device=dev) * 3.0).to(dt)
+                for layout, x in (("contiguous", full[:, 0, :V].contiguous()),
+                                  ("strided", full[:, -1, :V]), ("unaligned", full[:, 1, 1:])):
+                    errs.append(check(f"V {V} B {B} {dt} {layout}", x))
+        log(f"[kernels] greedy_epilogue V {V}: f32 and bf16, B 1 and 9, rows contiguous, "
+            f"strided (B, 3, V)[:, -1] and unaligned: tokens equal, max |lp - plain| "
+            f"{max(errs):.3e} (tol 1e-4)")
+    B, V = 8, 49152
+    C, width, _ = greedy_cluster_plan(B, V, _sm_count(0), max_c)
     xi = torch.randint(-4, 5, (B, V), generator=g, device=dev).float()
-    xi[0, 7] = xi[0, 3000] = xi[0, V - 1] = 9.0
-    tok_t, lp_t = greedy_epilogue(xi)
-    torch.cuda.synchronize()
-    tok_tp, lp_tp = greedy_epilogue_plain(xi)
-    ok = (torch.equal(tok, tok_p) and err <= 1e-4 and torch.equal(tok_t, tok_tp)
-          and int(tok_t[0]) == 7 and (lp_t - lp_tp).abs().max().item() <= 1e-4)
-    log(f"[kernels] greedy_epilogue f32: tokens equal {bool(torch.equal(tok, tok_p))}, "
-        f"max |lp - plain| = {err:.3e} (tol 1e-4); ties: row 0 -> {int(tok_t[0])} "
-        f"(first maximal index 7), all rows equal to plain {bool(torch.equal(tok_t, tok_tp))}")
-    if not ok:
-        raise AssertionError("greedy_epilogue disagrees with its plain version")
-    ms = timed_ms(lambda: greedy_epilogue(x), flush=flush)
+    xi[0, 7] = xi[0, 3000] = xi[0, V - 1] = 9.0          # inside rank 0's slice first
+    xi[1, width - 1] = xi[1, width] = xi[1, V - 1] = 9.0  # across a slice boundary
+    check("ties", xi, first=7)
+    tok_t, _ = greedy_epilogue(xi)
+    log(f"[kernels] greedy_epilogue ties: row 0 -> {int(tok_t[0])} (first maximal index 7), "
+        f"row 1 -> {int(tok_t[1])} (first maximal index {width - 1}, the last of rank 0's "
+        f"slice of {width}; {width} opens rank 1's)")
+    if int(tok_t[1]) != width - 1:
+        raise AssertionError("greedy_epilogue breaks a tie across slices differently from argmax")
+
+    rec = {}
+    for name, V, d in GREEDY_VOCABS:
+        for dname, dt in dtypes.items():
+            w = (torch.randn((d, V), generator=g, device=dev) * d ** -0.5).to(dt)
+            for B in (8, 1):
+                x = (torch.randn((B, V), generator=g, device=dev) * 3.0).to(dt)
+                err = check(f"{name} B {B} {dname}", x)
+                h = torch.randn((B, d), generator=g, device=dev).to(dt)
+                ms = timed_ms(lambda: greedy_epilogue(x), flush=flush)
+                warm_ms = timed_after_ms(lambda: torch.matmul(h, w, out=x),
+                                         lambda: greedy_epilogue(x))
+                by_kernel = device_us(lambda: greedy_epilogue(x), flush=flush)
+                if by_kernel.count(" us") > 1:
+                    raise AssertionError(f"greedy_epilogue launched more than one kernel: "
+                                         f"{by_kernel}")
+                n_bytes = x.numel() * x.element_size() + B * 8
+                b_ms, b_by = bound_ms(n_bytes, 4.0 * B * V, F32_FLOPS_PER_S)
+                plan = greedy_cluster_plan(B, V, _sm_count(0), max_c, x.element_size())
+                log(f"[kernels] greedy_epilogue {name} ({B}, {V}) {dname}: flushed {ms:.4f} ms, "
+                    f"warm after the matmul {warm_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+                    f"{n_bytes / 1e6:.2f} MB; flushed/bound {ms / b_ms:.1f}), clusters of "
+                    f"{plan[0]} CTAs of {plan[2]} threads x slices of {plan[1]}, max |lp - plain| "
+                    f"{err:.2e}; "
+                    f"device time by kernel: {by_kernel}")
+                if (name, B, dname) == ("smollm-135m", 8, "f32"):
+                    rec = dict(x=x, err=err, ms=ms, b_ms=b_ms, b_by=b_by)
+            del w
+    x = rec["x"]
     plain_ms = timed_ms(lambda: greedy_epilogue_plain(x), flush=flush)
 
     def lib():
         return x.max(dim=-1), torch.logsumexp(x, dim=-1)
 
     library_ms = timed_ms(lib, flush=flush)
-    n_bytes = B * V * 4 + B * 8
-    flops = 4.0 * B * V
-    b_ms, b_by = bound_ms(n_bytes, flops)
-    log(f"[kernels] greedy_epilogue f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"max+logsumexp {library_ms:.4f} ms, bound {b_ms:.5f} ms "
-        f"({b_by}: {n_bytes / 1e6:.2f} MB)")
+    log(f"[kernels] greedy_epilogue f32 (8, 49152): kernel {rec['ms']:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, max+logsumexp {library_ms:.4f} ms, bound {rec['b_ms']:.5f} ms; "
+        f"kernel/library {rec['ms'] / library_ms:.3f}")
     return {"name": "greedy_epilogue", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/lmhead_greedy.cu",
+            "source": "src/repro_torch/kernels/csrc/greedy_epilogue.cu",
             "replaces": "src/repro/kernels/sampling/kernel.py:63",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": plain_ms,
+            "bound_ms": rec["b_ms"], "bound_by": rec["b_by"], "library_ms": library_ms}
 
 
 def check_ssd_intra(dev, flush) -> dict:
@@ -1409,6 +1528,12 @@ def profile_window(dev, model, params, *, chunked: bool = True, tag: str = "[pro
         f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% of the unprofiled wall")
     for dev_ms, count, key in sorted(rows, reverse=True)[:12]:
         log(f"{tag}   {dev_ms:9.3f} ms {100 * dev_ms / busy_ms:5.1f}%  x{count:<6d} {key[:80]}")
+    epi = [(dev_ms, count) for dev_ms, count, key in rows if "greedy_epilogue_kernel" in key]
+    if epi:
+        epi_ms, epi_n = sum(r[0] for r in epi), sum(r[1] for r in epi)
+        log(f"{tag} greedy epilogue: {epi_ms:.3f} ms of device time over {epi_n} launches (one "
+            f"a decode step or prefill), {1e3 * epi_ms / epi_n:.2f} us a launch, "
+            f"{100 * epi_ms / busy_ms:.2f}% of device busy")
 
 
 def main() -> int:
@@ -1488,10 +1613,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     zamba_path(dev, (flash_attention_dyn, ssd_intra))
 
+    log(f"[done] greedy_epilogue launches: {launches['greedy_epilogue']} in phase 5b, "
+        f"{ssm_launches['greedy_epilogue']} in phase 5c")
     by_kernel = {"paged_mixed_attention": launches["decode_attention_mixed"],
                  "lmhead_greedy": launches["fused_lmhead_greedy"],
                  "paged_decode_attention": launches["decode_attention_paged"],
-                 "greedy_epilogue": launches["greedy_epilogue"],
+                 "greedy_epilogue": launches["greedy_epilogue"] + ssm_launches["greedy_epilogue"],
                  "flash_attention": launches["flash_attention_dyn"],
                  "ssd_intra": ssm_launches["ssd_intra"],
                  "dense_decode_attention": dense_launches}

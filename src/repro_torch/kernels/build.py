@@ -23,7 +23,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("paged_mixed_attention", "lmhead_greedy", "paged_decode_attention",
-           "flash_attention", "ssd_intra", "dense_decode_attention")
+           "flash_attention", "ssd_intra", "dense_decode_attention", "greedy_epilogue")
 
 
 def _nvcc() -> str:

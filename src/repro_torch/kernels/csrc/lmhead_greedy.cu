@@ -47,17 +47,6 @@
 // index whatever the order of the partials.  It is launched as a
 // programmatic dependent of its pass 1 (pdl.cuh), which the tensor-core
 // kernel releases at its start.
-//
-// Greedy epilogue over existing logits (second entry, greedy_epilogue).
-// Replaces the TPU kernel greedy_epilogue_fwd (_epilogue_kernel) in
-// src/repro/kernels/sampling/kernel.py: for f32 logits (B, V), each row's
-// first argmax and its log-probability max - logsumexp, without writing the
-// normalized (B, V) log-probs.  Bound by bytes: the logits are read once
-// (1.6 MB at B = 8, V = 49152, ~0.5 us at 3.35 TB/s); at that size the two
-// launches' latency dominates.  Pass 1 (logits_partials_kernel) gives each
-// (row, vocab tile of kTileE) one block, which reduces its tile to the same
-// (max, sum of exp(x - max), first argmax) partials the f32 pass 1 writes;
-// pass 2 is the same fold kernel.  V need not be a multiple of the tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -206,73 +195,6 @@ __global__ void lmhead_fold_kernel(const float* __restrict__ pmax,
   if (lane == 0) {
     tok[n] = best_i;
     lp[n] = best - (m + logf(fmaxf(l, 1e-30f)));
-  }
-}
-
-constexpr int kTileE = 2048;     // logits per pass-1 block of the greedy epilogue
-constexpr int kEThreads = 256;
-constexpr int kEPerThread = kTileE / kEThreads;
-
-__global__ void __launch_bounds__(kEThreads)
-logits_partials_kernel(const float* __restrict__ logits, long long row_stride, int V,
-                       int n_tiles, float* __restrict__ pmax, float* __restrict__ psum,
-                       int32_t* __restrict__ pidx) {
-  __shared__ float red_v[kEThreads / 32];
-  __shared__ int red_i[kEThreads / 32];
-  __shared__ float red_s[kEThreads / 32];
-  const int vt = blockIdx.x;
-  const int n = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const float* row = logits + static_cast<size_t>(n) * row_stride;
-  const int v0 = vt * kTileE;
-
-  float x[kEPerThread];
-  float best = -INFINITY;
-  int best_i = INT32_MAX;
-#pragma unroll
-  for (int e = 0; e < kEPerThread; ++e) {      // ascending vocab order per thread
-    const int v = v0 + tid + kEThreads * e;
-    x[e] = v < V ? row[v] : -INFINITY;
-    if (v < V && x[e] > best) {
-      best = x[e];
-      best_i = v;
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
-    if (ob > best || (ob == best && oi < best_i)) {
-      best = ob;
-      best_i = oi;
-    }
-  }
-  if (lane == 0) {
-    red_v[warp] = best;
-    red_i[warp] = best_i;
-  }
-  __syncthreads();
-  best = red_v[0];
-  best_i = red_i[0];
-  for (int w = 1; w < kEThreads / 32; ++w) {
-    if (red_v[w] > best || (red_v[w] == best && red_i[w] < best_i)) {
-      best = red_v[w];
-      best_i = red_i[w];
-    }
-  }
-  float sum = 0.f;
-#pragma unroll
-  for (int e = 0; e < kEPerThread; ++e)
-    if (v0 + tid + kEThreads * e < V) sum += expf(x[e] - best);
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) red_s[warp] = sum;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.f;
-    for (int w = 0; w < kEThreads / 32; ++w) total += red_s[w];
-    const size_t o = static_cast<size_t>(n) * n_tiles + vt;
-    pmax[o] = best;
-    psum[o] = total;
-    pidx[o] = best_i;
   }
 }
 
@@ -589,20 +511,4 @@ extern "C" int lmhead_greedy(int dtype, const void* h, const void* w, long long 
     return static_cast<int>(
         launch_bf16(h, w, sd, sv, N, d, V, n_cols, pmax, psum, pidx, tok, lp, st));
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int greedy_tile_v() { return kTileE; }
-
-// Greedy epilogue over f32 logits (N, V), rows row_stride elements apart.
-// The caller allocates the partials, each (N, ceil(V / greedy_tile_v())).
-extern "C" int greedy_epilogue(const float* logits, long long row_stride, int N, int V,
-                               float* pmax, float* psum, int32_t* pidx, int32_t* tok,
-                               float* lp, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (V + kTileE - 1) / kTileE;
-  logits_partials_kernel<<<dim3(n_tiles, N), kEThreads, 0, st>>>(logits, row_stride, V,
-                                                                 n_tiles, pmax, psum, pidx);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_fold(pmax, psum, pidx, N, n_tiles, tok, lp, st));
 }

@@ -149,7 +149,8 @@ def logits_inputs(kind, B=5, V=999, seed=6):
         return (rng.normal(size=(B, V)) * 3.0).astype(np.float32)
     x = rng.integers(-4, 5, (B, V)).astype(np.float32)
     x[0, 3] = x[0, 500] = x[0, 997] = 9.0
-    x[1, 998] = x[1, 0] = 9.0
+    if B > 1:
+        x[1, 998] = x[1, 0] = 9.0
     return x
 
 

@@ -19,7 +19,8 @@ from repro_torch.kernels.decode_attention.ops import (
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
 from repro_torch.kernels.sampling.ops import (
-    fused_lmhead_greedy, greedy_epilogue, greedy_epilogue_plain, lmhead_greedy_plain,
+    _epilogue_kernel, fused_lmhead_greedy, greedy_cluster_plan, greedy_epilogue,
+    greedy_epilogue_plain, greedy_epilogue_split_plain, greedy_max_cluster, lmhead_greedy_plain,
     lmhead_greedy_walk_plain,
 )
 from repro_torch.kernels.ssd.ops import ssd_intra, ssd_intra_grouped_plain, ssd_intra_plain
@@ -397,21 +398,108 @@ def test_lmhead_bf16_rejects_unsupported_inputs():
         fused_lmhead_greedy(h, emb.T.float())
 
 
+def _greedy_logits(kind, B, V, dtype, layout, dev):
+    """(B, V) logits on the card as ``layout`` lays them out: "contiguous";
+    "strided", the last of three positions of a (B, 3, V) tensor, as the
+    dense-cache engine passes ``logits[:, -1]``; "unaligned", rows that
+    start one element past a 16-byte boundary.  (Contiguous rows at V 999
+    and 4099 start off the boundary from row 1 on.)"""
+    x = torch.from_numpy(logits_inputs(kind, B=B, V=V)).to(dev, dtype)
+    if layout == "strided":
+        full = torch.zeros((B, 3, V), dtype=dtype, device=dev)
+        full[:, -1] = x
+        return full[:, -1]
+    if layout == "unaligned":
+        full = torch.zeros((B, V + 1), dtype=dtype, device=dev)
+        full[:, 1:] = x
+        return full[:, 1:]
+    return x
+
+
+GREEDY_VOCABS = [999, 4099, 32000, 49152, 50280, 151936, 262144]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 9, 33])
 @pytest.mark.parametrize("kind", ["normal", "tie"])
-@pytest.mark.parametrize("V", [999, 4099, 49152])
-def test_greedy_epilogue_kernel_matches_plain(kind, V):
+@pytest.mark.parametrize("V", GREEDY_VOCABS)
+def test_greedy_epilogue_kernel_matches_plain(kind, V, B, dtype, layout):
     dev = require_cuda()
-    x = torch.from_numpy(logits_inputs(kind, B=9, V=V)).to(dev)
+    x = _greedy_logits(kind, B, V, dtype, layout, dev)
     before = greedy_epilogue.launches
-    tok, lp = greedy_epilogue(x[:, :])
+    tok, lp = greedy_epilogue(x)
     torch.cuda.synchronize()
     assert greedy_epilogue.launches == before + 1
     tok_p, lp_p = greedy_epilogue_plain(x)
     assert torch.equal(tok, tok_p)
     torch.testing.assert_close(lp, lp_p, atol=1e-4, rtol=0)
+    assert (lp <= 0).all()
     if kind == "tie":
-        assert tok[0].item() == 3 and tok[1].item() == 0
+        assert tok[0].item() == 3 and (B == 1 or tok[1].item() == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 9, 33])
+@pytest.mark.parametrize("V", GREEDY_VOCABS)
+def test_greedy_epilogue_kernel_matches_split_plain(V, B, dtype):
+    """The kernel against the plain version of its own order of work at its
+    own plan (C ranks a row, slices merged in rank order), with exact maxima
+    at the last logit of rank 0, the first of rank 1 and the row's last: the
+    first of them wins."""
+    dev = require_cuda()
+    C, width, _ = greedy_cluster_plan(B, V, _sm_count(dev.index or 0),
+                                      greedy_max_cluster(dev.index or 0), dtype.itemsize)
+    x = torch.from_numpy(logits_inputs("normal", B=B, V=V)).to(dev, dtype)
+    x[0, min(width, V) - 1] = x[0, min(width, V - 1)] = x[0, V - 1] = 40.0
+    before = greedy_epilogue.launches
+    tok, lp = greedy_epilogue(x)
+    torch.cuda.synchronize()
+    assert greedy_epilogue.launches == before + 1
+    tok_s, lp_s = greedy_epilogue_split_plain(x, C)
+    assert torch.equal(tok, tok_s) and tok[0].item() == min(width, V) - 1
+    torch.testing.assert_close(lp, lp_s, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [256, 512])
+@pytest.mark.parametrize("layout", ["contiguous", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 33])
+@pytest.mark.parametrize("V", GREEDY_VOCABS)
+def test_greedy_epilogue_both_cta_sizes_match_plain(V, B, dtype, layout, threads):
+    """Both CTA sizes the plan picks from (256 threads, and 512 where half
+    the SMs or more would idle), each at every shape through the kernel's C
+    entry, at the wrapper's clusters and slices: tokens equal, logprob
+    within 1e-4."""
+    dev = require_cuda()
+    x = _greedy_logits("normal", B, V, dtype, layout, dev)
+    C, width, _ = greedy_cluster_plan(B, V, _sm_count(dev.index or 0),
+                                      greedy_max_cluster(dev.index or 0), dtype.itemsize)
+    tok = torch.empty((B,), dtype=torch.int32, device=dev)
+    lp = torch.empty((B,), device=dev)
+    err = _epilogue_kernel()[0](int(dtype == torch.bfloat16), x.data_ptr(), x.stride(0), B, V,
+                                C, width, threads, tok.data_ptr(), lp.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    tok_p, lp_p = greedy_epilogue_plain(x)
+    assert torch.equal(tok, tok_p)
+    torch.testing.assert_close(lp, lp_p, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_greedy_epilogue_rejects_other_dtypes():
+    dev = require_cuda()
+    before = greedy_epilogue.launches
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            greedy_epilogue(torch.zeros((2, 64), dtype=dtype, device=dev))
+    with pytest.raises(TypeError):
+        greedy_epilogue(torch.zeros((2, 3, 64), device=dev))
+    assert greedy_epilogue.launches == before
 
 
 @pytest.mark.cuda

@@ -26,17 +26,15 @@ plain version, ``chip_smoke.bf16_tol``).  Needs one CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
+
+import variant_build
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (timing helpers; puts src/ on the path)
-from repro_torch.kernels.build import NVCC_FLAGS, _nvcc  # noqa: E402
 
-CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-OUT = ROOT / "build" / "dense_decode_variants"
 PATCHES = {"no_merge": (
     "  // pass 2, the paged kernels' merge: every row's query at pos - 1\n  return repro_split",
     "  return cudaSuccess;\n  return repro_split")}
@@ -107,28 +105,11 @@ extern "C" int read_kv(int contig, const void* k, const void* v, unsigned* sink,
 
 def build() -> dict:
     """nvcc of every variant and of the read kernels at once; name -> library."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = (CSRC / "dense_decode_attention.cu").read_text()
-    sources = {"base": src}
-    for name, (old, new) in PATCHES.items():
-        if old not in src:
-            raise RuntimeError(f"patch {name} no longer applies to dense_decode_attention.cu")
-        sources[name] = src.replace(old, new)
+    sources = {"base": variant_build.patched("dense_decode_attention", (), "base")}
+    for name, patch in PATCHES.items():
+        sources[name] = variant_build.patched("dense_decode_attention", (patch,), name)
     sources["reads"] = READS
-    procs = {}
-    for name, text in sources.items():
-        cu = OUT / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(OUT / f"lib{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        libs[name] = ctypes.CDLL(str(OUT / f"lib{name}.so"))
-    return libs
+    return variant_build.build("dense_decode_variants", sources)
 
 
 def main() -> int:

@@ -25,17 +25,15 @@ Needs one CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
+
+import variant_build
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (timing and input helpers; puts src/ on the path)
-from repro_torch.kernels.build import _nvcc  # noqa: E402
 
-CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-OUT = ROOT / "build" / "lmhead_variants"
 PATCHES = {
     "no_mma": ("      if (warp_live) {\n#pragma unroll\n        for (int jp = 0; jp < 4; ++jp)",
                "      if (warp_live && lane > 99) {\n#pragma unroll\n        for (int jp = 0; jp < 4; ++jp)"),
@@ -53,35 +51,19 @@ SHAPES = (("smollm-135m tied", 128, 576, 49152, True),
 def build() -> dict:
     """nvcc of every variant at once; name -> the lmhead_greedy entry and
     lmhead_partial_cols of its library."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = (CSRC / "lmhead_greedy.cu").read_text()
-    procs = {}
-    for name, patches in VARIANTS.items():
-        text = src
-        for p in patches:
-            old, new = PATCHES[p]
-            if old not in text:
-                raise RuntimeError(f"patch {p} no longer matches csrc/lmhead_greedy.cu")
-            text = text.replace(old, new)
-        (OUT / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", f"-I{CSRC}", "-o", str(OUT / f"lib{name}.so"),
-             str(OUT / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+    libs = variant_build.build("lmhead_variants", {
+        name: variant_build.patched("lmhead_greedy", [PATCHES[p] for p in patches], name)
+        for name, patches in VARIANTS.items()})
+    out = {}
+    for name, lib in libs.items():
         fn = lib.lmhead_greedy
         fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                         ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
         fn.restype = ctypes.c_int
         lib.lmhead_partial_cols.argtypes = [ctypes.c_int] * 4
         lib.lmhead_partial_cols.restype = ctypes.c_int
-        libs[name] = (fn, lib.lmhead_partial_cols)
-    return libs
+        out[name] = (fn, lib.lmhead_partial_cols)
+    return out
 
 
 def main() -> int:

@@ -25,17 +25,15 @@ variants reversed, base.  Needs one CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
+
+import variant_build
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (timing helpers; puts src/ on the path)
-from repro_torch.kernels.build import NVCC_FLAGS, _nvcc  # noqa: E402
 
-CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-OUT = ROOT / "build" / "ssd_variants"
 T64 = ("constexpr int kTT = 32;", "constexpr int kTT = 64;")
 U64 = ("constexpr int kUS = 32;", "constexpr int kUS = 64;")
 VARIANTS = {"base": (), "t64_u64": (T64, U64), "t64_u32": (T64,),
@@ -46,26 +44,12 @@ SHAPES = (("nc 1", 1, 1, 256, 64, 64, 128), ("nc 2", 1, 2, 256, 64, 64, 128),
 
 def build() -> dict:
     """nvcc of every variant at once; name -> its ssd_intra entry."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = (CSRC / "ssd_intra.cu").read_text()
-    procs = {}
-    for name, patches in VARIANTS.items():
-        text = src
-        for old, new in patches:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: patch {old!r} no longer applies")
-            text = text.replace(old, new)
-        cu = OUT / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(OUT / f"lib{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = variant_build.build("ssd_variants", {
+        name: variant_build.patched("ssd_intra", patches, name)
+        for name, patches in VARIANTS.items()})
     fns = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        fn = ctypes.CDLL(str(OUT / f"lib{name}.so")).ssd_intra
+    for name, lib in libs.items():
+        fn = lib.ssd_intra
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
