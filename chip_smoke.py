@@ -56,7 +56,23 @@ Phases, each of which fails the run if it fails:
    policy over a seeded bursty request stream; 6b. the same on the
    mamba2-1.3b engine;
 7. short profiled windows of the three serving paths (device time by
-   kernel).
+   kernel);
+8. the replica fleet's float32 reference (smollm-135m ``SMOKE``, weights
+   written by the port's ``CheckpointManager``): a one-replica fleet on the
+   card equals the bare engine on the card (tokens, done_s, completion
+   order, step counts), and the ``kill-under-load`` ``ChaosDrill`` of
+   tests/test_fleet.py passes on the card with the CPU's tokens;
+8b. the fleet at full width (smollm-135m ``CONFIG``, bf16, seeded weights
+   through a checkpoint, ``ServeConfig(max_batch=8, max_len=1024)``
+   replicas sharing the card): (i) ``FleetBackend`` under the target
+   policy, 1 to 3 replicas, over a bursty stream, one replica killed once
+   two serve; (ii) two replicas on phase 5's requests, the newest drained
+   mid-flight by ``FleetExecutor.drain``, tokens bit-identical to an
+   undrained run.  Every request completes exactly once, pages are
+   conserved, the measured provisioning delay is above 0, replicas peak at
+   2 or more, a respawn follows the kill, and both main-path kernels
+   launch (counters zeroed before each run); it prints each spawn's
+   seconds (load, place, build, probe), peak memory and throughput.
 
 The second-to-last line of stdout is the ``kernels`` JSON record (the greedy
 epilogue's launches are phase 5b's plus phase 5c's), the last
@@ -65,8 +81,10 @@ epilogue's launches are phase 5b's plus phase 5c's), the last
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1536,6 +1554,280 @@ def profile_window(dev, model, params, *, chunked: bool = True, tag: str = "[pro
             f"{100 * epi_ms / busy_ms:.2f}% of device busy")
 
 
+# ---------------------------------------------------------------------------------
+# phase 8: the replica fleet
+# ---------------------------------------------------------------------------------
+
+class _Hold:
+    """A policy that votes zero delta forever: the only scaling activity
+    left is fault healing (the drill's policy in tests/test_fleet.py)."""
+
+    name = "hold"
+
+    def reset(self):
+        pass
+
+    def decide(self, obs):
+        from repro_torch.core.autoscaler.base import Decision
+        return Decision(0, "hold")
+
+    def describe(self):
+        return "hold"
+
+
+def fleet_requests(vocab, n, *, arrival, decode, seed):
+    """tests/test_fleet.py's request shape: prompts of 8, 16 or 24 tokens."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, arrival_s=arrival(i),
+                    prompt=rng.integers(0, vocab, 8 + (i % 3) * 8).astype(np.int32),
+                    max_new_tokens=decode(i)) for i in range(n)]
+
+
+def spawn_line(rep) -> str:
+    parts = ", ".join(f"{k[:-2]} {v:.3f}" for k, v in rep.spawn_parts.items())
+    return f"replica{rep.rix} {rep.spawn_s:.3f} s ({parts})"
+
+
+def fleet_reference(dev, ckpt_dir: str) -> None:
+    """Phase 8, float32 smoke config, weights written by the port's
+    CheckpointManager: (a) a one-replica fleet on the card equals the bare
+    engine on the card (tokens, done_s, completion order, step counts);
+    (b) the kill-under-load ChaosDrill of tests/test_fleet.py passes on the
+    card, and its completed tokens equal the same drill's on the CPU."""
+    import dataclasses
+    import os
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.chaos import ChaosAction, ChaosDrill, ChaosScript
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.serving.fleet import FleetBackend, FleetRouter, ReplicaPool
+
+    cfg = dataclasses.replace(get_smoke_config("smollm-135m"), dtype=torch.float32)
+    mgr = CheckpointManager(ckpt_dir, keep=2, async_save=False)
+    mgr.save(build_model(cfg, device="cpu").init_params(SEED), step=1)
+    serve_cfg = ServeConfig(max_batch=4, max_len=128, decode_steps=4)
+
+    model = build_model(cfg, device=dev)
+    pool = ReplicaPool(model, mgr, serve_cfg)
+    replica, _ = pool.spawn()
+    pool.serving.append(replica)
+    probe_steps = replica.eng.step_count
+    bare = ServingEngine(model, replica.eng.params, serve_cfg, device=dev)
+    router = FleetRouter(pool)
+    arrival, decode = (lambda i: float(i // 3)), (lambda i: 4 + i % 5)
+    fleet_reqs = fleet_requests(cfg.vocab, 10, arrival=arrival, decode=decode, seed=7)
+    bare_reqs = fleet_requests(cfg.vocab, 10, arrival=arrival, decode=decode, seed=7)
+    heads = [0, 0]
+    for t in range(200):
+        while heads[0] < 10 and fleet_reqs[heads[0]].arrival_s <= t:
+            router.submit(fleet_reqs[heads[0]])
+            heads[0] += 1
+        router.dispatch(float(t))
+        replica.step(float(t), decode_steps=2)
+        while heads[1] < 10 and bare_reqs[heads[1]].arrival_s <= t:
+            bare.submit(bare_reqs[heads[1]])
+            heads[1] += 1
+        bare.step(now=float(t), decode_steps=2)
+        if not router.backlog and not replica.eng.n_in_system and not bare.n_in_system:
+            break
+    same = ([(r.rid, r.output, r.done_s) for r in replica.eng.completed]
+            == [(r.rid, r.output, r.done_s) for r in bare.completed]
+            and len(bare.completed) == 10)
+    steps_same = replica.eng.step_count - probe_steps == bare.step_count
+    log(f"[fleet ref] smoke f32, one replica on the card vs the bare engine on the card: "
+        f"tokens, done_s and completion order identical {same}, step counts "
+        f"({bare.step_count}) identical {steps_same}; spawn {spawn_line(replica)}")
+    if not (same and steps_same):
+        raise AssertionError("a one-replica fleet on the card differs from the bare engine")
+
+    completed = {}
+    for i, where in enumerate(("cpu", dev.type)):
+        built = []
+
+        def make_backend(*, on_step, audit_path, where=where, built=built):
+            pool = ReplicaPool(build_model(cfg, device=where), mgr, serve_cfg)
+            reqs = fleet_requests(cfg.vocab, 10, arrival=lambda i: float(i // 2),
+                                  decode=lambda i: 4 + i % 3, seed=21)
+            be = FleetBackend(pool, reqs, sla_s=60.0, horizon_s=8.0, policy=_Hold(),
+                              starting_replicas=2, max_replicas=3, adapt_period_s=2.0,
+                              app_window_s=4.0, decode_steps=2, calibrate=False,
+                              on_step=on_step, audit_path=audit_path)
+            built.append(be)
+            return be
+
+        drill = ChaosDrill("kill-under-load", make_backend,
+                           ChaosScript([ChaosAction(3.0, "kill", count=1)], seed=5),
+                           audit_path=os.path.join(ckpt_dir, f"drill-{i}-{where}.jsonl"))
+        report = drill.run()
+        completed[where] = {r.rid: r.output for r in built[-1].completed}
+        log(f"[fleet ref] {where}: {report.summary()}; fired {report.fired}")
+        if not (report.ok and report.fired and report.n_completed == 10):
+            raise AssertionError(f"the kill-under-load drill failed on {where}")
+    same = completed["cpu"] == completed[dev.type]
+    log(f"[fleet ref] kill-under-load drill, card vs CPU: completed tokens identical {same}")
+    if not same:
+        raise AssertionError("the drill's tokens on the card differ from the CPU's")
+
+
+def fleet_path(dev, counters, ckpt_dir: str, phase5_tokens: dict) -> dict:
+    """Phase 8b: smollm-135m at full width in bf16, seeded weights saved
+    through the port's CheckpointManager, replicas of
+    ``ServeConfig(max_batch=8, max_len=1024)`` sharing the card.
+    (i) scale-up and healing: FleetBackend under the target policy, 1 to 3
+    replicas, over a bursty stream; a ChaosScript kills one replica once at
+    least two serve.  (ii) drain: two replicas take phase 5's requests, one
+    is drained mid-flight, and the tokens equal an undrained run's bit for
+    bit.  Returns each run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.chaos import (
+        ChaosAction, ChaosScript, check_exactly_once, check_kv_conservation)
+    from repro_torch.core.scaling import CapacityPlan, UnitPool
+    from repro_torch.data import request_stream
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServeConfig
+    from repro_torch.serving.fleet import (
+        FLEET_POOL, FleetBackend, FleetExecutor, FleetRouter, ReplicaPool)
+
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg, device=dev)
+    mgr = CheckpointManager(ckpt_dir)
+    t0 = time.perf_counter()
+    mgr.save(model.init_params(SEED), step=1)
+    mgr.wait()
+    log(f"[fleet] {cfg.name} bf16 checkpoint ({os.path.getsize(mgr.latest()) / 2**20:.1f} MiB)"
+        f" written in {time.perf_counter() - t0:.3f} s")
+    serve_cfg = ServeConfig(max_batch=8, max_len=1024)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    V = cfg.vocab
+    failures = []
+
+    # (i) scale-up and healing under the target policy
+    stream = request_stream(n_requests=48, seed=SEED, mean_prompt=128, mean_decode=32,
+                            burst_times=(10.0,), horizon_s=30.0)
+    reqs = [Request(rid=i, arrival_s=t,
+                    prompt=np.random.default_rng(i).integers(0, V, min(p, 512)).astype(np.int32),
+                    max_new_tokens=max(min(d, 256), 1))
+            for i, (t, p, d) in enumerate(stream)]
+    chaos = {}
+
+    def kill_when_two_serve(be, t):
+        if "script" not in chaos and len(be.pool.serving) >= 2:
+            chaos["script"] = ChaosScript([ChaosAction(t, "kill", count=1)], seed=SEED)
+            chaos["spawned_before"] = be.pool._next_rix
+        if "script" in chaos:
+            chaos["script"].on_step(be, t)
+
+    pool = ReplicaPool(model, mgr, serve_cfg)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    be = FleetBackend(pool, reqs, sla_s=20.0, horizon_s=30.0, starting_replicas=1,
+                      max_replicas=3, on_step=kill_when_two_serve)
+    rep = be.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    replicas = pool.serving + pool.retired
+    tokens = sum(len(r.output) for r in be.completed)
+    measured = rep.pool_provision_delay_s.get(FLEET_POOL, 0.0)
+    fired = chaos["script"].fired if "script" in chaos else []
+    respawned = "script" in chaos and pool._next_rix > chaos["spawned_before"]
+    log(f"[fleet] (i) target policy, 1..3 replicas: {rep.n_done}/{len(reqs)} completed, "
+        f"{tokens} tokens in {wall:.3f} s wall ({tokens / wall:.1f} tok/s aggregate, spawns "
+        f"included); SLA({rep.sla_s:.0f}s) violations {100 * rep.violation_rate:.2f}%; "
+        f"replicas peak {rep.max_units}/3, units_t {rep.units_t.tolist()} (virtual s); "
+        f"{rep.n_decisions_up} up / {rep.n_decisions_down} down; measured provisioning "
+        f"delay {measured:.3f} s; migrated backlog peak {rep.extra['migrated_backlog_peak']}; "
+        f"kill {fired}, respawned after it {respawned}; launches {launches}")
+    for r in replicas:
+        state = "serving" if r in pool.serving else ("drained" if r.draining else "retired")
+        log(f"[fleet]   spawn {spawn_line(r)}; {state}; {r.tokens} tokens in {r.busy_s:.3f} s "
+            f"busy = {r.tokens_per_busy_s:.1f} tok/busy-s")
+    log(f"[fleet] peak memory {peak_mib:.0f} MiB with {len(replicas)} engines resident "
+        f"(retired engines keep their KV pools and params; {base_mib:.0f} MiB before the "
+        f"fleet); replicas share one card and one host thread, so the wall-clock "
+        f"aggregate is not expected to scale with the replica count")
+    violations = (check_exactly_once([r.rid for r in reqs], be.completed)
+                  + check_kv_conservation(pool, drained=True))
+    if violations:
+        failures.append(f"(i) invariants: {[str(v) for v in violations]}")
+    if not (rep.n_done == len(reqs) and measured > 0.0 and rep.max_units >= 2
+            and fired and respawned and all(v > 0 for v in launches.values())):
+        failures.append("(i): incomplete requests, no measured delay, fewer than two "
+                        "replicas, no kill or respawn, or a kernel that never launched")
+    launches_i = launches
+
+    # (ii) drain under load: the same fleet drained and undrained
+    runs = {}
+    for drained in (False, True):
+        pool = ReplicaPool(model, mgr, serve_cfg)
+        for _ in range(2):
+            r, _ = pool.spawn()
+            pool.serving.append(r)
+        executor = FleetExecutor(pool, CapacityPlan(
+            (UnitPool(FLEET_POOL, min_units=1, max_units=2),), starting_units=2))
+        router = FleetRouter(pool)
+        reqs = main_requests(V)
+        for r in reqs:
+            router.submit(r)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        moved = 0
+        for t in range(100_000):
+            if drained and t == 4:             # the executor drains the newest
+                victim = pool.serving[-1]
+                moved = sum(victim.eng.pos[s] > 0 for s in victim.eng.active)
+                in_flight = len(victim.eng.active)
+                if executor.drain(FLEET_POOL, 1, float(t)) != 1 or victim in pool.serving:
+                    raise AssertionError("the executor did not drain the newest replica")
+            router.dispatch(float(t))
+            for r in pool.serving:
+                r.step(float(t), decode_steps=2)
+            if not router.backlog and not any(r.eng.n_in_system for r in pool.serving):
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        done = [q for r in pool.serving + pool.retired for q in r.eng.completed]
+        violations = (check_exactly_once([q.rid for q in reqs], done)
+                      + check_kv_conservation(pool, drained=True))
+        emitted = sum(len(q.output) for q in done)
+        runs[drained] = {q.rid: q.output for q in done}
+        what = (f"drained replica{pool.retired[0].rix} at t=4 with {in_flight} in flight, "
+                f"{moved} of them with committed KV migrated" if drained else "undrained")
+        log(f"[fleet] (ii) 2 replicas, phase 5's {len(reqs)} requests, {what}: {len(done)} "
+            f"completed, {emitted} tokens in {wall:.3f} s ({emitted / wall:.1f} tok/s), "
+            f"{t + 1} fleet steps; launches {launches}")
+        if violations:
+            failures.append(f"(ii) {what} invariants: {[str(v) for v in violations]}")
+        if not all(v > 0 for v in launches.values()):
+            failures.append(f"(ii) {what}: a kernel never launched")
+        if drained and not moved:
+            failures.append("(ii): the drain migrated no committed KV")
+    same = runs[True] == runs[False] and len(runs[True]) == 16
+    like5 = sum(runs[False][rid] == toks for rid, toks in phase5_tokens.items())
+    log(f"[fleet] (ii) drained vs undrained tokens bit-identical {same}; {like5}/16 requests "
+        f"emit phase 5's single-engine tokens (printed, not gated)")
+    if not same:
+        failures.append("(ii): the drained run's tokens differ from the undrained run's")
+    log(f"[fleet] peak memory over phase 8b {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if failures:
+        raise AssertionError("fleet phase failed: " + "; ".join(failures))
+    return {"scale-up": launches_i, "drain": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1612,6 +1904,14 @@ def main() -> int:
     del ssm_model, ssm_params
     torch.cuda.empty_cache()
     zamba_path(dev, (flash_attention_dyn, ssd_intra))
+
+    # the replica fleet: a float32 reference, then smollm-135m at full width
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fleet-") as tmp:
+        fleet_reference(dev, os.path.join(tmp, "smoke"))
+        fleet_launches = fleet_path(dev, counters, os.path.join(tmp, "full"), chunked_tokens)
+    log(f"[fleet] phases 8 and 8b in {time.perf_counter() - t0:.1f} s; launches {fleet_launches}")
 
     log(f"[done] greedy_epilogue launches: {launches['greedy_epilogue']} in phase 5b, "
         f"{ssm_launches['greedy_epilogue']} in phase 5c")

@@ -7,14 +7,17 @@ plane driving decode-slot elasticity.
 
 ``--arch mamba2-1.3b`` serves the ssm family through the engine's
 dense-cache fallback (its prefill runs the SSD intra-chunk kernel).
+``--replicas N`` (N > 1) serves through the replica fleet
+(:mod:`repro_torch.serving.fleet`): one replica spawned from a checkpoint
+at start, up to N under the policy, each spawn's wall time measured.
 
-Counterpart of ``repro.launch.serve`` (single engine; the replica fleet is
-not ported yet).  :class:`ServeBackend` is a scalable backend over the
-*live* :class:`~repro_torch.serving.ServingEngine`: the unit of elasticity
-is a decode slot, and the ``output_score`` SignalBus channel carries each
-request's application-output signal -- the engine-computed running mean
-logprob of the tokens actually generated.  Any registered policy can
-manage the slot pool.  The engine runs on the GPU unless ``--device cpu``.
+Counterpart of ``repro.launch.serve``.  :class:`ServeBackend` is a scalable
+backend over the *live* :class:`~repro_torch.serving.ServingEngine`: the
+unit of elasticity is a decode slot, and the ``output_score`` SignalBus
+channel carries each request's application-output signal -- the
+engine-computed running mean logprob of the tokens actually generated.
+Any registered policy can manage the slot pool.  The engine (every
+replica, in fleet mode) runs on the GPU unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -203,6 +206,9 @@ def serve(args) -> int:
                 0, cfg.vocab, min(p, args.max_len // 2)).astype(np.int32),
             max_new_tokens=max(min(d, args.max_len // 4), 1)))
 
+    if args.replicas > 1:
+        return serve_fleet(args, model, params, serve_cfg, reqs, policy)
+
     eng = ServingEngine(model, params, serve_cfg, device=model.device)
     backend = ServeBackend(eng, reqs, sla_s=args.sla, horizon_s=args.horizon,
                            policy=policy, stall_steps=args.stall_steps,
@@ -229,6 +235,43 @@ def serve(args) -> int:
     return 0
 
 
+def serve_fleet(args, model, params, serve_cfg, reqs, policy) -> int:
+    """Fleet mode: the unit of elasticity is a whole ENGINE, spawned from a
+    checkpoint with a measured provisioning delay and drained with
+    in-flight migration (see :mod:`repro_torch.serving.fleet`)."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.serving.fleet import FLEET_POOL, FleetBackend, ReplicaPool
+
+    if not serve_cfg.chunked_prefill:
+        print("[serve] --replicas needs the mixed step: migration requires the "
+              "chunked paged engine (drop --bucketed)", file=sys.stderr)
+        return 2
+    with tempfile.TemporaryDirectory(prefix="fleet-ckpt-") as ckpt_dir:
+        ckpt = save_checkpoint(os.path.join(ckpt_dir, "ckpt_00000001.npz"),
+                               params, step=0)
+        pool = ReplicaPool(model, ckpt, serve_cfg)
+        backend = FleetBackend(pool, reqs, sla_s=args.sla,
+                               horizon_s=args.horizon, policy=policy,
+                               starting_replicas=1,
+                               max_replicas=args.replicas,
+                               decode_steps=args.decode_steps,
+                               audit_path=args.audit_path)
+        t0 = time.time()
+        rep = backend.run()
+    measured = rep.pool_provision_delay_s.get(FLEET_POOL, 0.0)
+    print(f"[serve] fleet completed {rep.n_done}/{len(reqs)} requests "
+          f"({time.time() - t0:.1f}s wall) under {rep.policy} on {model.device}")
+    print(f"[serve] latency mean {rep.mean_latency_s:.1f} "
+          f"p99 {rep.p99_latency_s:.1f} (virtual s); "
+          f"SLA({args.sla}s) violations {100 * rep.violation_rate:.2f}%; "
+          f"replicas peak {rep.max_units}/{args.replicas}; "
+          f"measured provisioning delay {measured:.3f}s")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
@@ -246,6 +289,12 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=None,
                     help="KV page size (default: per device, see "
                          "repro_torch.kernels.decode_attention.autotune)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="ceiling on serving-engine replicas; > 1 switches to "
+                         "fleet mode (repro_torch.serving.fleet): starts at one "
+                         "replica spawned from a checkpoint and lets the "
+                         "convergence plane scale the fleet, with measured "
+                         "provisioning delays and drain-migration")
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="tokens each slot advances per virtual second (one "
                          "K-step device loop per engine step)")

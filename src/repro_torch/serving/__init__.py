@@ -1,3 +1,3 @@
-from repro_torch.serving.engine import Request, ServeConfig, ServingEngine
+from repro_torch.serving.engine import MigratedRequest, Request, ServeConfig, ServingEngine
 
-__all__ = ["Request", "ServeConfig", "ServingEngine"]
+__all__ = ["MigratedRequest", "Request", "ServeConfig", "ServingEngine"]

@@ -13,7 +13,14 @@ PORT = ROOT / "src" / "repro_torch"
 JAX_PKG = ROOT / "src" / "repro"
 FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
 COPIED = ("core/__init__.py", "core/scaling", "core/autoscaler", "core/convergence",
-          "core/simulator", "utils")
+          "core/simulator", "core/chaos", "core/signals", "utils",
+          "core/elastic/__init__.py", "core/elastic/cluster.py")
+# The one port-written file under core/: the JAX module rebuilds a device
+# mesh and reshards through jax and repro.distributed.sharding, which the
+# port does not have yet (ROADMAP.md Queue 1 item 8).  Its one-card stand-in
+# keeps the five names the JAX module exports, so core/elastic/__init__.py
+# stays a verbatim copy.
+PORT_WRITTEN = ("core/elastic/remesh.py",)
 
 
 def _port_files():
@@ -55,5 +62,17 @@ def test_control_plane_copy_is_verbatim(path):
 
 def test_every_control_plane_module_is_copied():
     for entry in COPIED[1:]:
-        names = {p.name for p in (JAX_PKG / entry).glob("*.py")}
-        assert names == {p.name for p in (PORT / entry).glob("*.py")}, entry
+        if (JAX_PKG / entry).is_dir():
+            names = {p.name for p in (JAX_PKG / entry).glob("*.py")}
+            assert names == {p.name for p in (PORT / entry).glob("*.py")}, entry
+
+
+def test_core_is_copied_but_for_the_port_written_remesh():
+    """Every module under the JAX package's core/ has its counterpart in the
+    port, and each is a checked verbatim copy except PORT_WRITTEN."""
+    def rel(root):
+        return {str(p.relative_to(root)) for p in (root / "core").rglob("*.py")}
+    assert rel(PORT) == rel(JAX_PKG)
+    copied = {str(p.relative_to(PORT)) for p in _copied_files()}
+    assert rel(PORT) - copied == set(PORT_WRITTEN)
+    assert not copied & set(PORT_WRITTEN)
