@@ -25,7 +25,14 @@ Phases, each of which fails the run if it fails:
    strided and unaligned rows, timed with the L2 flushed and warm after the
    matmul that writes its logits), and time the kernel, the plain version
    and a PyTorch library yardstick beside the least time the card could
-   take;
+   take; likewise at the moe / vlm families' shapes: paged mixed attention
+   at olmoe-1b-7b's (16 / 16 heads of 128, group 1), pixtral-12b's,
+   mixtral-8x22b's (window 4096) and smollm-360m's heads, the lm-head at
+   olmoe's, mixtral's and pixtral's untied heads and smollm-360m's tied
+   one, paged decode attention at olmoe's heads at page sizes 8, 16, 32
+   and 64 (only 16, the engine's, is a record), the greedy epilogue at
+   olmoe's vocabulary (50304), and flash attention at olmoe's heads (timed),
+   mixtral's (window 4096 and 64) and pixtral's;
 4. small end-to-end references: the smoke config at float32 served on the
    card (kernels) and on the CPU (plain versions) must emit identical
    tokens, on the chunked path and on the bucketed-prefill path; likewise
@@ -72,10 +79,31 @@ Phases, each of which fails the run if it fails:
    conserved, the measured provisioning delay is above 0, replicas peak at
    2 or more, a respawn follows the kill, and both main-path kernels
    launch (counters zeroed before each run); it prints each spawn's
-   seconds (load, place, build, probe), peak memory and throughput.
+   seconds (load, place, build, probe), peak memory and throughput;
+9a. float32 references of the new families: olmoe-smoke and mixtral-smoke
+   at capacity factor 1.25 through the engine on both paths, card against
+   CPU token for token (dropped pairs printed), and pixtral-smoke from
+   embeddings (forward, prefill, decode_step) within 1e-4;
+9b. olmoe-1b-7b ``CONFIG`` at bf16, full width and depth, seeded weights:
+   phase 5's requests on the chunked path, then the bucketed one; paged
+   mixed attention launches 16 times and the lm-head once per verify_step,
+   no plain version runs, a second chunked drain gives the same tokens;
+   dropped pairs, peak memory, a profiled window
+   (the expert ``bmm``s' and the MoE layers' shares of device time) and
+   the ``appdata`` scaling loop;
+9c. mixtral-8x22b at full width and 2 of its 56 layers (prefill of 4 x 512
+   tokens, 8 verify_steps at positions past 512), pixtral-12b at full
+   width and depth (prefill from embeddings, decode steps from embeddings
+   and from tokens, 2 verify_steps), smollm-360m through the engine; each
+   with its launches and its cuts;
+9d. the autotune sweeps (page size, span width) at smollm-135m's and
+   olmoe-1b-7b's heads and the row ``pick_defaults`` would choose, which
+   is not applied.
 
 The second-to-last line of stdout is the ``kernels`` JSON record (the greedy
-epilogue's launches are phase 5b's plus phase 5c's), the last
+epilogue's launches are phase 5b's plus phase 5c's; a record named
+``kernel[config]`` is that kernel at the config's shape, its launches from
+phase 9b's or 9c's run of that config), the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -387,6 +415,37 @@ def lmhead_case(dev, N, d, V, *, tied=True, seed=SEED + 1):
     return h, (embed.T if tied else embed.T.contiguous())
 
 
+def check_lmhead_case(label, h, w) -> float:
+    """The bf16 lm-head on (h, w) against its plain version: tokens equal on
+    rows with a clear top-1 (gap > 1e-4), logprob within 1e-3; returns the
+    logprob error."""
+    import torch
+    from repro_torch.kernels.sampling.ops import fused_lmhead_greedy, lmhead_greedy_plain
+    tok, lp = fused_lmhead_greedy(h, w)
+    torch.cuda.synchronize()
+    tok_p, lp_p = lmhead_greedy_plain(h, w)
+    top2 = (h.float() @ w.float()).topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4      # summation order differs
+    lp_err = (lp - lp_p).abs().max().item()
+    same = bool(torch.equal(tok[clear], tok_p[clear]))
+    log(f"[kernels] lmhead_greedy bf16 {label}: {int(clear.sum())}/{h.shape[0]} rows with a "
+        f"clear top-1, tokens equal on them: {same}; max |lp - plain| = {lp_err:.3e} "
+        f"(tol 1e-3)")
+    if not (same and lp_err <= 1e-3 and clear.float().mean() > 0.9):
+        raise AssertionError(f"lmhead_greedy {label} disagrees with its plain version")
+    return lp_err
+
+
+def lmhead_library(h, w):
+    """The library yardstick of the lm-head: matmul, then max and logsumexp."""
+    import torch
+
+    def lib():
+        x = torch.matmul(h, w)
+        return x.max(dim=-1), torch.logsumexp(x.float(), dim=-1)
+    return lib
+
+
 def check_lmhead(dev, flush) -> dict:
     """fused lm-head at the serving shape: 128 rows (8 x 16 span positions),
     d = 576, the tied 49152 x 576 bf16 embedding as the head; the untied
@@ -399,21 +458,7 @@ def check_lmhead(dev, flush) -> dict:
     from repro_torch.kernels.sampling.ops import (
         LMHEAD_TILE_V, _kernel, _sm_count, fused_lmhead_greedy, lmhead_greedy_plain)
 
-    def check(label, h, w):
-        tok, lp = fused_lmhead_greedy(h, w)
-        torch.cuda.synchronize()
-        tok_p, lp_p = lmhead_greedy_plain(h, w)
-        top2 = (h.float() @ w.float()).topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 1e-4      # summation order differs
-        lp_err = (lp - lp_p).abs().max().item()
-        same = bool(torch.equal(tok[clear], tok_p[clear]))
-        log(f"[kernels] lmhead_greedy bf16 {label}: {int(clear.sum())}/{h.shape[0]} rows with a "
-            f"clear top-1, tokens equal on them: {same}; max |lp - plain| = {lp_err:.3e} "
-            f"(tol 1e-3)")
-        if not (same and lp_err <= 1e-3 and clear.float().mean() > 0.9):
-            raise AssertionError(f"lmhead_greedy {label} disagrees with its plain version")
-        return lp_err
-
+    check = check_lmhead_case
     N, d, V = 128, 576, 49152
     h, w = lmhead_case(dev, N, d, V)
     lp_err = check("smollm-135m tied 128 x 576 x 49152", h, w)
@@ -446,13 +491,7 @@ def check_lmhead(dev, flush) -> dict:
 
     ms = timed_ms(lambda: fused_lmhead_greedy(h, w), flush=flush)
     plain_ms = timed_ms(lambda: lmhead_greedy_plain(h, w), flush=flush)
-
-    def library(hh, ww):
-        def lib():
-            x = torch.matmul(hh, ww)
-            return x.max(dim=-1), torch.logsumexp(x.float(), dim=-1)
-        return lib
-
+    library = lmhead_library
     library_ms = timed_ms(library(h, w), flush=flush)
     n_bytes = V * d * 2 + N * d * 2 + N * 8
     flops = 2.0 * N * d * V
@@ -482,12 +521,16 @@ def check_lmhead(dev, flush) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
-def check_flash(dev, flush) -> dict:
+def check_flash(dev, flush) -> list[dict]:
     """flash attention at the bucketed prefill shape of smollm-135m: 8 rows
     of a 512 bucket, 9 query / 3 kv heads of 64; f32 and bf16, window -1
-    and 64 (a local layer); and, for correctness only, zamba2-2.7b's shared
-    attention (B 4, S 512, 32 / 32 heads of 80) and qwen2.5-3b's heads
-    (16 / 2 of 128)."""
+    and 64 (a local layer); likewise at olmoe-1b-7b's (16 / 16 heads of
+    128, group 1: phase 9b's bucketed prefill); and, for correctness only,
+    zamba2-2.7b's shared attention (B 4, S 512, 32 / 32 heads of 80),
+    qwen2.5-3b's heads (16 / 2 of 128), and phase 9c's prefills:
+    mixtral-8x22b's (B 4, S 512, 48 / 8 of 128, window 4096 and 64) and
+    pixtral-12b's (B 2, S 256, 32 / 8 of 128).  The records are the bf16
+    causal calls at smollm-135m's and olmoe-1b-7b's shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
@@ -498,11 +541,14 @@ def check_flash(dev, flush) -> dict:
                 torch.randn((B, S, Hkv, D), generator=g, device=dev),
                 torch.randn((B, S, Hkv, D), generator=g, device=dev))
 
-    B, S, Hq, Hkv, D = 8, 512, 9, 3, 64
-    q, k, v = inputs(B, S, Hq, Hkv, D, SEED + 2)
-    cases = [("smollm-135m", (q, k, v), (-1, 64)),
+    timed = {"smollm-135m": inputs(8, 512, 9, 3, 64, SEED + 2),
+             "olmoe-1b-7b": inputs(8, 512, 16, 16, 128, SEED + 70)}
+    cases = [("smollm-135m", timed["smollm-135m"], (-1, 64)),
+             ("olmoe-1b-7b", timed["olmoe-1b-7b"], (-1, 64)),
              ("zamba2-2.7b", inputs(4, 512, 32, 32, 80, SEED + 14), (-1,)),
-             ("qwen2.5-3b", inputs(4, 512, 16, 2, 128, SEED + 15), (-1, 64))]
+             ("qwen2.5-3b", inputs(4, 512, 16, 2, 128, SEED + 15), (-1, 64)),
+             ("mixtral-8x22b", inputs(4, 512, 48, 8, 128, SEED + 71), (4096, 64)),
+             ("pixtral-12b", inputs(2, 256, 32, 8, 128, SEED + 72), (-1,))]
     errs = {}
     for shape, (q_, k_, v_), windows in cases:
         for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -521,36 +567,41 @@ def check_flash(dev, flush) -> dict:
                 errs[(shape, name, window)] = err
     del cases
 
-    qq, kk, vv = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    ms = timed_ms(lambda: flash_attention_dyn(qq, kk, vv, -1), flush=flush)
-    plain_ms = timed_ms(lambda: flash_attention_plain(qq, kk, vv, -1), flush=flush)
-    qt, kt, vt = qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+    records = []
+    for shape, (q, k, v) in timed.items():
+        B, S, Hq, D = q.shape
+        qq, kk, vv = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        ms = timed_ms(lambda: flash_attention_dyn(qq, kk, vv, -1), flush=flush)
+        plain_ms = timed_ms(lambda: flash_attention_plain(qq, kk, vv, -1), flush=flush)
+        qt, kt, vt = qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
 
-    def lib():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
-    lib_err = (lib().transpose(1, 2).float()
-               - flash_attention_plain(qq, kk, vv, -1).float()).abs().max().item()
-    library_ms = timed_ms(lib, flush=flush)
-    # least time: q, k, v read once, out written once; flops: QK^T and PV
-    # over the causal pairs
-    n_bytes = (2 * qq.numel() + kk.numel() + vv.numel()) * qq.element_size()
-    flops = 4.0 * D * Hq * B * (S * (S + 1) // 2)
-    b_ms, b_by = bound_ms(n_bytes, flops)
-    log(f"[kernels] flash_attention bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), bound {b_ms:.5f} ms "
-        f"({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-    log(f"[kernels] flash_attention bf16: kernel/library {ms / library_ms:.3f}, "
-        f"kernel/bound {ms / b_ms:.1f}")
-    log(f"[kernels] flash_attention bf16 device time by kernel: "
-        f"{device_us(lambda: flash_attention_dyn(qq, kk, vv, -1), flush=flush)}; "
-        f"sdpa: {device_us(lib, flush=flush)}")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
-            "max_abs_err": errs[("smollm-135m", "bfloat16", -1)], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms}
+        lib_err = (lib().transpose(1, 2).float()
+                   - flash_attention_plain(qq, kk, vv, -1).float()).abs().max().item()
+        library_ms = timed_ms(lib, flush=flush)
+        # least time: q, k, v read once, out written once; flops: QK^T and PV
+        # over the causal pairs
+        n_bytes = (2 * qq.numel() + kk.numel() + vv.numel()) * qq.element_size()
+        flops = 4.0 * D * Hq * B * (S * (S + 1) // 2)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        log(f"[kernels] flash_attention bf16 {shape}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), bound "
+            f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        log(f"[kernels] flash_attention bf16 {shape}: kernel/library {ms / library_ms:.3f}, "
+            f"kernel/bound {ms / b_ms:.1f}")
+        log(f"[kernels] flash_attention bf16 {shape} device time by kernel: "
+            f"{device_us(lambda: flash_attention_dyn(qq, kk, vv, -1), flush=flush)}; "
+            f"sdpa: {device_us(lib, flush=flush)}")
+        records.append({"name": "flash_attention" if shape == "smollm-135m"
+                        else f"flash_attention[{shape}]", "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
+                        "max_abs_err": errs[(shape, "bfloat16", -1)], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": library_ms})
+    return records
 
 
 def decode_inputs(dev, B, Hq, Hkv, D, ps, n, lengths, seed):
@@ -666,7 +717,10 @@ def check_paged_decode(dev, flush) -> dict:
 # (config, vocabulary, d_model): the greedy epilogue's rows at each ported config
 GREEDY_VOCABS = (("smollm-135m", 49152, 576), ("mamba2-1.3b", 50280, 2048),
                  ("zamba2-2.7b", 32000, 2560), ("qwen2.5-3b", 151936, 2048),
-                 ("gemma3-4b", 262144, 2560))
+                 ("gemma3-4b", 262144, 2560), ("olmoe-1b-7b", 50304, 2048))
+# the configs whose (8, V) f32 row is reported as a record: smollm-135m's
+# phase 5b, olmoe-1b-7b's bucketed drain of phase 9b
+GREEDY_RECORDS = {"smollm-135m": "greedy_epilogue", "olmoe-1b-7b": "greedy_epilogue[olmoe-1b-7b]"}
 
 
 def timed_after_ms(prep, fn, *, reps: int = 20) -> float:
@@ -692,7 +746,7 @@ def timed_after_ms(prep, fn, *, reps: int = 20) -> float:
     return total / reps
 
 
-def check_greedy(dev, flush) -> dict:
+def check_greedy(dev, flush) -> list[dict]:
     """Greedy epilogue: small vocabularies first (V 999 and 4099, B 1 and 9,
     f32 and bf16, rows contiguous, strided as ``logits[:, -1]`` of a
     (B, 3, V) tensor, and starting off a 16-byte boundary an odd stride
@@ -701,7 +755,8 @@ def check_greedy(dev, flush) -> dict:
     to the plain version's, logprob within 1e-4.  Each of those is timed
     with the L2 flushed and warm right after the ``torch.matmul`` that writes
     its logits (the serving order), and its device time by kernel printed:
-    one kernel a call.  The record is (8, 49152) f32, flushed."""
+    one kernel a call.  The records are (8, V) f32, flushed, at smollm-135m's
+    and olmoe-1b-7b's vocabularies (:data:`GREEDY_RECORDS`)."""
     import torch
     from repro_torch.kernels.sampling.ops import (
         _epilogue_kernel, _sm_count, greedy_cluster_plan, greedy_epilogue,
@@ -773,24 +828,27 @@ def check_greedy(dev, flush) -> dict:
                     f"{plan[0]} CTAs of {plan[2]} threads x slices of {plan[1]}, max |lp - plain| "
                     f"{err:.2e}; "
                     f"device time by kernel: {by_kernel}")
-                if (name, B, dname) == ("smollm-135m", 8, "f32"):
-                    rec = dict(x=x, err=err, ms=ms, b_ms=b_ms, b_by=b_by)
+                if name in GREEDY_RECORDS and (B, dname) == (8, "f32"):
+                    rec[name] = dict(x=x, err=err, ms=ms, b_ms=b_ms, b_by=b_by)
             del w
-    x = rec["x"]
-    plain_ms = timed_ms(lambda: greedy_epilogue_plain(x), flush=flush)
+    records = []
+    for name, r in rec.items():
+        x = r["x"]
+        plain_ms = timed_ms(lambda: greedy_epilogue_plain(x), flush=flush)
 
-    def lib():
-        return x.max(dim=-1), torch.logsumexp(x, dim=-1)
+        def lib():
+            return x.max(dim=-1), torch.logsumexp(x, dim=-1)
 
-    library_ms = timed_ms(lib, flush=flush)
-    log(f"[kernels] greedy_epilogue f32 (8, 49152): kernel {rec['ms']:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, max+logsumexp {library_ms:.4f} ms, bound {rec['b_ms']:.5f} ms; "
-        f"kernel/library {rec['ms'] / library_ms:.3f}")
-    return {"name": "greedy_epilogue", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/greedy_epilogue.cu",
-            "replaces": "src/repro/kernels/sampling/kernel.py:63",
-            "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": plain_ms,
-            "bound_ms": rec["b_ms"], "bound_by": rec["b_by"], "library_ms": library_ms}
+        library_ms = timed_ms(lib, flush=flush)
+        log(f"[kernels] greedy_epilogue {name} f32 {tuple(x.shape)}: kernel {r['ms']:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, max+logsumexp {library_ms:.4f} ms, bound "
+            f"{r['b_ms']:.5f} ms; kernel/library {r['ms'] / library_ms:.3f}")
+        records.append({"name": GREEDY_RECORDS[name], "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/greedy_epilogue.cu",
+                        "replaces": "src/repro/kernels/sampling/kernel.py:63",
+                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": plain_ms,
+                        "bound_ms": r["b_ms"], "bound_by": r["b_by"], "library_ms": library_ms})
+    return records
 
 
 def check_ssd_intra(dev, flush) -> dict:
@@ -1006,6 +1064,160 @@ def dense_decode_timing(dev, flush, shape, q, k, v, pos, window) -> dict:
         f"{device_us(lambda: decode_attention(q, k, v, pos, window=window), flush=flush)}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms}
+
+
+# the moe / vlm families' main-path shapes (config, Hq, Hkv, D, window): the
+# first two are timed and reported, the rest checked
+FAMILY_MIXED = (("olmoe-1b-7b", 16, 16, 128, -1), ("pixtral-12b", 32, 8, 128, -1),
+                ("mixtral-8x22b", 48, 8, 128, 4096), ("smollm-360m", 15, 5, 64, -1))
+# (config, d, V, tied) of the families' lm-heads, every one timed and reported
+FAMILY_HEADS = (("olmoe-1b-7b", 2048, 50304, False), ("mixtral-8x22b", 6144, 32768, False),
+                ("pixtral-12b", 5120, 131072, False), ("smollm-360m", 960, 49152, True))
+SWEEP_PAGE_SIZES = (8, 16, 32, 64)
+OLMOE_HEADS = (16, 16, 128)          # olmoe-1b-7b's (Hq, Hkv, D): MHA, group 1
+
+
+def record(name, source, replaces, err, ms, plain_ms, b_ms, b_by, library_ms) -> dict:
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def paged_timing(fn, plain, args, q, kk, tbl, rows_at, n_live, ps, flush, **kw):
+    """(kernel ms, plain ms, sdpa ms, bound ms, bound_by) of one paged
+    attention call on bf16 pages: ``rows_at`` (B,) are each row's first
+    query positions (``starts``, or ``lengths - 1`` at T = 1).  The bound
+    reads each live page once, q once and writes out once; its flops are
+    QK^T and PV over the keys each query attends."""
+    import torch.nn.functional as F
+    from repro_torch.serving.kvcache import _span_mask, paged_gather
+
+    B, T, Hq, D = q.shape
+    Hkv = kk.shape[2]
+    ms = timed_ms(lambda: fn(*args, **kw), flush=flush)
+    plain_ms = timed_ms(lambda: plain(*args, **kw), flush=flush)
+    kd = paged_gather(kk, tbl).transpose(1, 2)                 # (B, Hkv, S, D)
+    vd = paged_gather(args[2], tbl).transpose(1, 2)
+    mask = _span_mask(kd.shape[2], rows_at, T, kw.get("window", -1))[:, None]
+    qt = q.transpose(1, 2)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, enable_gqa=True)
+
+    library_ms = timed_ms(lib, flush=flush)
+    n_bytes = (2 * q.numel() * q.element_size() + sum(n_live) * 2 * ps * Hkv * D * 2
+               + tbl.numel() * 4 + B * 4)
+    keys = sum(int(s) + t + 1 for s in rows_at.tolist() for t in range(T))
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * keys * Hq * D)
+    return ms, plain_ms, library_ms, b_ms, b_by
+
+
+def check_family_kernels(dev, flush) -> list[dict]:
+    """Phase 3 at the shapes the moe and vlm families and smollm-360m give
+    the main path's kernels: paged mixed attention at each config's heads
+    (8 rows of 16 queries over a 64-entry table of 16-token pages; f32,
+    bf16 and int8 pages; the config's window and 100), the bf16 lm-head at
+    each config's head, and paged decode attention at olmoe-1b-7b's heads
+    at the page sizes the autotune sweep times (8 rows, lengths 64 .. 640;
+    bf16 and int8; window -1 and 100).  Each is checked against its plain
+    version, then timed beside the plain version, its library call and its
+    bound.  Page sizes other than 16 run on no main path (the engine pages
+    by 16), so only page size 16 is a record; the others are printed."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import (
+        _sm_count, choose_pages_per_split, decode_attention_mixed, decode_attention_paged,
+        paged_decode_attention_plain, paged_mixed_attention_plain)
+    from repro_torch.kernels.sampling.ops import fused_lmhead_greedy, lmhead_greedy_plain
+
+    records = []
+    for i, (arch, Hq, Hkv, D, window) in enumerate(FAMILY_MIXED):
+        B, T, ps, n = 8, 16, 16, 64
+        var, tbl, starts, n_live = paged_inputs(
+            dev, B, T, Hq, Hkv, D, ps, n, [0, 17, 130, 255, 511, 640, 893, 1000], SEED + 40 + i)
+        errs = {}
+        for name in ("float32", "bfloat16", "int8"):
+            qq, kk, vv, sc = var[name]
+            for w in (window, 100):
+                out = decode_attention_mixed(qq, kk, vv, tbl, starts, window=w, **sc)
+                torch.cuda.synchronize()
+                ref = paged_mixed_attention_plain(qq, kk, vv, tbl, starts, window=w, **sc)
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = 1e-4 if name == "float32" else 2e-2
+                log(f"[kernels] paged_mixed_attention {arch} ({Hq}/{Hkv} heads of {D}) {name} "
+                    f"window={w}: max |kernel - plain| = {err:.3e} (tol {tol})")
+                if not (err <= tol and torch.isfinite(out).all()):
+                    raise AssertionError(f"paged_mixed_attention {arch} {name} window={w} "
+                                         f"disagrees with its plain version: {err}")
+                errs[(name, w)] = err
+        if arch not in ("olmoe-1b-7b", "pixtral-12b"):
+            continue
+        qq, kk, vv, _ = var["bfloat16"]
+        ms, plain_ms, lib_ms, b_ms, b_by = paged_timing(
+            decode_attention_mixed, paged_mixed_attention_plain, (qq, kk, vv, tbl, starts),
+            qq, kk, tbl, starts, n_live, ps, flush, window=window)
+        pps = choose_pages_per_split(B, Hkv, n, ps, _sm_count(0))
+        log(f"[kernels] paged_mixed_attention bf16 {arch}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+            f"kernel/library {ms / lib_ms:.3f}, kernel/bound {ms / b_ms:.1f}; split plan {pps} "
+            f"pages a split, {B * Hkv * -(-n // pps)} pass-1 blocks, {T * Hq // Hkv} query rows "
+            f"a kv head")
+        records.append(record(f"paged_mixed_attention[{arch}]", "paged_mixed_attention.cu",
+                              "src/repro/kernels/decode_attention/kernel.py:234",
+                              errs[("bfloat16", window)], ms, plain_ms, b_ms, b_by, lib_ms))
+        del var
+
+    for i, (arch, d, V, tied) in enumerate(FAMILY_HEADS):
+        N = 128
+        h, w = lmhead_case(dev, N, d, V, tied=tied, seed=SEED + 50 + i)
+        err = check_lmhead_case(f"{arch} {'tied' if tied else 'untied'} {N} x {d} x {V}", h, w)
+        ms = timed_ms(lambda: fused_lmhead_greedy(h, w), flush=flush)
+        plain_ms = timed_ms(lambda: lmhead_greedy_plain(h, w), flush=flush)
+        lib_ms = timed_ms(lmhead_library(h, w), flush=flush)
+        b_ms, b_by = bound_ms(V * d * 2 + N * d * 2 + N * 8, 2.0 * N * d * V)
+        log(f"[kernels] lmhead_greedy bf16 {arch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"matmul+max+logsumexp {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+            f"{(V * d * 2) / 1e6:.1f} MB of head); kernel/library {ms / lib_ms:.3f}, "
+            f"kernel/bound {ms / b_ms:.2f}")
+        records.append(record(f"lmhead_greedy[{arch}]", "lmhead_greedy.cu",
+                              "src/repro/kernels/sampling/kernel.py:139",
+                              err, ms, plain_ms, b_ms, b_by, lib_ms))
+        del h, w
+
+    Hq, Hkv, D = OLMOE_HEADS
+    for ps in SWEEP_PAGE_SIZES:
+        B, n = 8, 1024 // ps
+        var, tbl, lengths, n_live = decode_inputs(dev, B, Hq, Hkv, D, ps, n, DECODE_LENGTHS,
+                                                  SEED + 60 + ps)
+        errs = {}
+        for name in ("bfloat16", "int8"):
+            qq, kk, vv, sc = var[name]
+            for w in (-1, 100):
+                out = decode_attention_paged(qq, kk, vv, tbl, lengths, window=w, **sc)
+                torch.cuda.synchronize()
+                ref = paged_decode_attention_plain(qq, kk, vv, tbl, lengths, window=w, **sc)
+                err = (out.float() - ref.float()).abs().max().item()
+                log(f"[kernels] paged_decode_attention olmoe-1b-7b page size {ps} {name} "
+                    f"window={w}: max |kernel - plain| = {err:.3e} (tol 2e-2)")
+                if not (err <= 2e-2 and torch.isfinite(out).all()):
+                    raise AssertionError(f"paged_decode_attention page size {ps} {name} "
+                                         f"window={w} disagrees with its plain version: {err}")
+                errs[(name, w)] = err
+        qq, kk, vv, _ = var["bfloat16"]
+        ms, plain_ms, lib_ms, b_ms, b_by = paged_timing(
+            decode_attention_paged, paged_decode_attention_plain, (qq, kk, vv, tbl, lengths),
+            qq, kk, tbl, lengths - 1, n_live, ps, flush, window=-1)
+        pps = choose_pages_per_split(B, Hkv, n, ps, _sm_count(0))
+        log(f"[kernels] paged_decode_attention bf16 olmoe-1b-7b page size {ps}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}); kernel/library {ms / lib_ms:.3f}, kernel/bound {ms / b_ms:.1f}; split "
+            f"plan {pps} pages a split")
+        if ps == 16:
+            records.append(record("paged_decode_attention[olmoe-1b-7b]",
+                                  "paged_decode_attention.cu",
+                                  "src/repro/kernels/decode_attention/kernel.py:288",
+                                  errs[("bfloat16", -1)], ms, plain_ms, b_ms, b_by, lib_ms))
+        del var
+    return records
 
 
 # ---------------------------------------------------------------------------------
@@ -1503,10 +1715,13 @@ def scaling_loop(dev, model, params, counters, *, n_requests: int = 24,
 
 
 def profile_window(dev, model, params, *, chunked: bool = True, tag: str = "[profile]",
-                   kind: str = "mixed iterations") -> None:
+                   kind: str = "mixed iterations", shares=()) -> None:
     """Device time by kernel over three engine steps of one path: one
     engine runs them unprofiled for the wall time, a twin engine with the
-    same requests runs them under torch.profiler for the device time."""
+    same requests runs them under torch.profiler for the device time.
+    ``shares``: (label, profiler key) pairs of host-side ops or
+    ``record_function`` ranges whose kernels' device time is printed as a
+    share of the busy time."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1535,8 +1750,11 @@ def profile_window(dev, model, params, *, chunked: bool = True, tag: str = "[pro
     twin = engine()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_wall_ms, _ = three_steps(twin)
+    # the device-side copies of ``shares``' ranges are spans, not kernels
+    ranges = {key for _, key in shares}
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key not in ranges]
     if not rows:
         log(f"{tag} the profiler reported no device time: not measured")
         return
@@ -1546,6 +1764,13 @@ def profile_window(dev, model, params, *, chunked: bool = True, tag: str = "[pro
         f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% of the unprofiled wall")
     for dev_ms, count, key in sorted(rows, reverse=True)[:12]:
         log(f"{tag}   {dev_ms:9.3f} ms {100 * dev_ms / busy_ms:5.1f}%  x{count:<6d} {key[:80]}")
+    for label, key in shares:
+        # host-side events: each one's device time is its kernels' and its children's
+        evs = [e for e in prof.events() if e.name == key and e.device_type == DeviceType.CPU]
+        ms = sum(e.device_time_total for e in evs) / 1e3
+        log(f"{tag} {label} ({key}): " + (
+            f"{ms:.3f} ms of device time over {len(evs)} calls, {100 * ms / busy_ms:.1f}% of "
+            f"device busy" if ms > 0 else "not measured (no device time under it)"))
     epi = [(dev_ms, count) for dev_ms, count, key in rows if "greedy_epilogue_kernel" in key]
     if epi:
         epi_ms, epi_n = sum(r[0] for r in epi), sum(r[1] for r in epi)
@@ -1828,6 +2053,425 @@ def fleet_path(dev, counters, ckpt_dir: str, phase5_tokens: dict) -> dict:
     return {"scale-up": launches_i, "drain": launches}
 
 
+# ---------------------------------------------------------------------------------
+# phase 9: the moe and vlm families, smollm-360m and the autotune sweeps
+# ---------------------------------------------------------------------------------
+
+class moe_drops:
+    """Counts the (token, expert) pairs the MoE layers drop, on the device
+    (no host sync per layer): ``calls`` MoE layers ran over ``pairs`` pairs;
+    :meth:`dropped` sums the drops once, at the end."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._plain = moe, moe.dispatch
+        self.calls, self.pairs, self._drops = 0, 0, []
+
+        def counting(experts, C, n_experts):
+            plan = self._plain(experts, C, n_experts)
+            self.calls += 1
+            self.pairs += experts.numel()
+            self._drops.append((~plan[3]).sum())
+            return plan
+
+        moe.dispatch = counting
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.dispatch = self._plain
+
+    def dropped(self) -> int:
+        import torch
+        return int(torch.stack(self._drops).sum()) if self._drops else 0
+
+
+class no_plain:
+    """Counts calls of the main-path kernels' plain versions while it is
+    entered (each wrapper would call its plain version only for CPU
+    tensors); ``calls`` must stay 0 on the card."""
+    NAMES = (("repro_torch.kernels.decode_attention.ops",
+              ("paged_mixed_attention_plain", "paged_decode_attention_plain")),
+             ("repro_torch.kernels.sampling.ops",
+              ("lmhead_greedy_plain", "greedy_epilogue_plain")),
+             ("repro_torch.kernels.flash_attention.ops", ("flash_attention_plain",)))
+
+    def __enter__(self):
+        import importlib
+        self.calls = 0
+        self._saved = []
+        for mod_name, names in self.NAMES:
+            mod = importlib.import_module(mod_name)
+            for name in names:
+                plain = getattr(mod, name)
+
+                def counted(*a, _plain=plain, **kw):
+                    self.calls += 1
+                    return _plain(*a, **kw)
+
+                self._saved.append((mod, name, plain))
+                setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, plain in self._saved:
+            setattr(mod, name, plain)
+
+
+def family_references(dev) -> None:
+    """Phase 9a, float32 references: olmoe-smoke and mixtral-smoke at the
+    published capacity factor 1.25 through the engine on the chunked and
+    the bucketed paths, on the card (kernels) and on the CPU (plain
+    versions): identical tokens, completion order and step counts, scores
+    within 1e-4; the dropped pairs are printed.  pixtral-smoke ``forward``,
+    ``prefill`` and a ``decode_step`` from embeddings, card against CPU
+    within 1e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import MoEConfig
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    for arch in ("olmoe-1b-7b", "mixtral-8x22b"):
+        base = get_smoke_config(arch)
+        m = base.moe
+        cfg = dataclasses.replace(base, dtype=torch.float32,
+                                  moe=MoEConfig(m.n_experts, m.top_k, m.d_expert, 1.25))
+        cpu_params = build_model(cfg, device="cpu").init_params(SEED)
+        for chunked in (True, False):
+            runs = {}
+            for where in ("cpu", "cuda"):
+                kw = dict(max_batch=4, max_len=64, page_size=8, chunked_prefill=chunked)
+                if chunked:
+                    kw.update(chunk_size=8, draft_len=4)
+                eng = ServingEngine(build_model(cfg, device=where), to_device(cpu_params, where),
+                                    ServeConfig(**kw), device=where)
+                rng = np.random.default_rng(SEED)
+                for i in range(6):
+                    eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab,
+                                                                  int(rng.integers(4, 30))),
+                                       max_new_tokens=int(rng.integers(4, 16))))
+                with moe_drops() as drops:
+                    eng.run_until_drained()
+                eng.kv.check_invariants()
+                runs[where] = ([(r.rid, r.output) for r in eng.completed], eng.step_count,
+                               {r.rid: r.score for r in eng.completed}, drops.dropped(),
+                               drops.pairs)
+            same = runs["cpu"][:2] == runs["cuda"][:2]
+            dscore = max(abs(runs["cpu"][2][r] - runs["cuda"][2][r]) for r in runs["cpu"][2])
+            log(f"[reference] {cfg.name} f32 capacity factor 1.25 "
+                f"{'chunked' if chunked else 'bucketed'} engine, card vs CPU: tokens, completion "
+                f"order and step count ({runs['cuda'][1]}) identical {same}, max |score diff| "
+                f"{dscore:.2e}; dropped pairs {runs['cuda'][3]} of {runs['cuda'][4]} on the "
+                f"card, {runs['cpu'][3]} on the CPU")
+            if not (same and len(runs["cuda"][0]) == 6 and dscore < 1e-4):
+                raise AssertionError(f"the {arch} engine on the card disagrees with the CPU")
+
+    cfg = dataclasses.replace(get_smoke_config("pixtral-12b"), dtype=torch.float32)
+    params = build_model(cfg, device="cpu").init_params(SEED)
+    rng = np.random.default_rng(SEED + 30)
+    embeds = torch.from_numpy(rng.normal(size=(2, 37, cfg.d_model)).astype(np.float32))
+    step = torch.from_numpy(rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32))
+    outs = {}
+    for where in ("cpu", "cuda"):
+        model = build_model(cfg, device=where)
+        p = to_device(params, where)
+        logits, _ = model.forward(p, {"embeds": embeds.to(where)})
+        last, cache = model.prefill(p, {"embeds": embeds.to(where)}, max_len=48)
+        dec, _ = model.decode_step(p, cache, step.to(where), 37)
+        outs[where] = [t.cpu() for t in (logits, last, dec)]
+    err = max((a - b).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
+    log(f"[reference] pixtral-smoke f32 forward, prefill and decode_step from embeddings, card "
+        f"vs CPU: max |logit diff| {err:.2e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError("pixtral-smoke from embeddings on the card disagrees with the CPU")
+
+
+def moe_profile(dev, model, params) -> None:
+    """Phase 9b's profiled window: :func:`profile_window` on the olmoe
+    engine, with each MoE layer and its dispatch plan under
+    ``record_function`` ranges, then the device time of the expert ``bmm``s
+    and of the rest of the MoE layers (router, sort, dispatch, combine) as
+    shares of the device's busy time."""
+    import torch
+    from repro_torch.models import lm, moe
+
+    plain_ffn, plain_dispatch = lm.moe_ffn, moe.dispatch
+
+    def ffn(*a, **kw):
+        with torch.profiler.record_function("moe_ffn"):
+            return plain_ffn(*a, **kw)
+
+    def dispatch(*a, **kw):
+        with torch.profiler.record_function("moe_dispatch"):
+            return plain_dispatch(*a, **kw)
+
+    lm.moe_ffn, moe.dispatch = ffn, dispatch
+    try:
+        profile_window(dev, model, params, tag="[profile olmoe]",
+                       shares=(("MoE layers", "moe_ffn"), ("expert bmm", "aten::bmm"),
+                               ("sort-based dispatch plan", "moe_dispatch")))
+    finally:
+        lm.moe_ffn, moe.dispatch = plain_ffn, plain_dispatch
+
+
+def olmoe_path(dev, counters, bucketed_counters) -> dict:
+    """Phase 9b: olmoe-1b-7b ``CONFIG`` at bf16, full width and depth, seeded
+    random weights; phase 5's 16 requests on the chunked path, then on the
+    bucketed path (``ServeConfig(max_batch=8, max_len=1024)``).  Every
+    request completes, pages are conserved, the main-path kernels launch
+    (paged mixed attention 16 times and the lm-head once per verify_step)
+    and no plain version runs; peak memory is printed.  A second chunked
+    drain must give the same tokens; it counts the dropped pairs, so the
+    first drain's throughput is taken without the counter.  The bucketed
+    drain counts its drops with the counter on (one reduction a MoE layer
+    inside its timed window).  Then a profiled window and the ``appdata``
+    scaling loop.  Returns the launches of both paths."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("olmoe-1b-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)                                   # on the GPU
+    params = model.init_params(SEED)
+    torch.cuda.synchronize()
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    log(f"[olmoe] {cfg.name} bf16: {cfg.n_layers} layers, d={cfg.d_model}, {cfg.moe.n_experts} "
+        f"experts top-{cfg.moe.top_k} of d_expert {cfg.moe.d_expert}, capacity factor "
+        f"{cfg.moe.capacity_factor}; {weights_gb:.2f} GB of weights drawn in "
+        f"{time.perf_counter() - t0:.1f} s; reduced: none")
+    with no_plain() as plain:
+        launches, tokens = main_path(dev, model, params, counters)
+    verifies = launches["fused_lmhead_greedy"]
+    per_step_ok = launches["decode_attention_mixed"] == cfg.n_layers * verifies
+    log(f"[olmoe] chunked (no drop counter): {verifies} verify_steps, paged mixed attention "
+        f"{launches['decode_attention_mixed']} launches ({cfg.n_layers} a verify_step: "
+        f"{per_step_ok}), lm-head {verifies} (1 a verify_step); plain-version calls "
+        f"{plain.calls}")
+    if not (per_step_ok and plain.calls == 0):
+        raise AssertionError("olmoe chunked path: a launch count off one per layer per "
+                             "verify_step, or a plain version ran on the card")
+    # the combine's fixed order and the trash page's last-writer rule make a
+    # second drain of the same requests give the same bits
+    with moe_drops() as drops:
+        _, again = main_path(dev, model, params, counters)
+    log(f"[olmoe] a second chunked drain of the same requests (drop counter on): tokens "
+        f"identical {again == tokens}; dropped pairs {drops.dropped()} of {drops.pairs} "
+        f"({drops.dropped() / max(verifies, 1):.1f} a verify_step, "
+        f"{100 * drops.dropped() / max(drops.pairs, 1):.2f}%)")
+    if again != tokens:
+        raise AssertionError("olmoe chunked path: two runs of the bf16 engine differ")
+    with no_plain() as plain, moe_drops() as drops:
+        b_launches = bucketed_path(dev, model, params, bucketed_counters, tokens)
+    log(f"[olmoe] bucketed (drop counter on): plain-version calls {plain.calls}; dropped "
+        f"pairs {drops.dropped()} of {drops.pairs} over {drops.calls} MoE layer calls; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB (the paths batch tokens "
+        f"differently and MoE routing depends on the batch: their agreement is not gated)")
+    if plain.calls:
+        raise AssertionError("olmoe bucketed path: a plain version ran on the card")
+    moe_profile(dev, model, params)
+    scaling_loop(dev, model, params, counters, tag="[scaling olmoe]")
+    return {"chunked": launches, "bucketed": b_launches}
+
+
+def paged_pool(cfg, dev, B: int, n: int, ps: int = 16):
+    """An empty paged pool of ``B * n + 1`` pages in cfg.dtype and a table
+    giving row b the pages ``1 + b * n .. (b + 1) * n``."""
+    import torch
+    L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (L, B * n + 1, ps, Hkv, hd)
+    pages = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    tbl = torch.arange(1, B * n + 1, dtype=torch.int32, device=dev).reshape(B, n)
+    return pages, tbl
+
+
+def family_paths(dev, counters) -> dict:
+    """Phase 9c: the other new configs at full width on the card.
+    mixtral-8x22b at 2 of its 56 layers: ``prefill`` of 4 x 512 tokens, then
+    8 ``verify_step``s of 16 tokens over a paged pool at positions 512 ..
+    639 (its 4096-token window passed to the kernel).  pixtral-12b at full
+    depth: ``prefill`` from (2, 256, 5120) embeddings, 4 ``decode_step``s
+    from (2, 1, 5120) embeddings and 4 from tokens over a paged pool, then 2
+    ``verify_step``s.  smollm-360m through the engine on phase 5's requests
+    (chunked).  Each model is freed before the next is built; each run's
+    cuts are printed beside it.  Returns launches per config."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.kvcache import write_prefill_pages
+
+    out = {}
+    ps = 16
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def launched():
+        return {c.__name__: c.launches for c in counters}
+
+    full = get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(full, n_layers=2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init_params(SEED)
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    B, S, T, steps = 4, 512, 16, 8
+    toks = torch.from_numpy(np.random.default_rng(SEED + 31).integers(
+        0, cfg.vocab, (B, S))).to(dev)
+    zero()
+    with no_plain() as plain, moe_drops() as drops:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pages, tbl = paged_pool(cfg, dev, B, (S + steps * T) // ps)
+        write_prefill_pages(pages, cache, tbl[:, :S // ps])
+        del cache
+        span = torch.cat([logits[:, 0].argmax(-1, keepdim=True),
+                          torch.from_numpy(np.random.default_rng(SEED + 32).integers(
+                              0, cfg.vocab, (B, T - 1))).to(dev)], dim=1)
+        finite = bool(torch.isfinite(logits).all())
+        t0 = time.perf_counter()
+        for i in range(steps):
+            pos = torch.full((B,), S + i * T, dtype=torch.int32, device=dev)
+            tok, lp, pages = model.verify_step(params, pages, span, pos, block_table=tbl)
+            finite = finite and bool(torch.isfinite(lp).all() and (lp <= 0).all())
+            span = tok.long()
+        torch.cuda.synchronize()
+        verify_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = launched()
+    ok = (finite and plain.calls == 0 and launches["flash_attention_dyn"] == cfg.n_layers
+          and launches["decode_attention_mixed"] == cfg.n_layers * steps
+          and launches["fused_lmhead_greedy"] == steps
+          and bool(((span >= 0) & (span < cfg.vocab)).all()))
+    log(f"[mixtral] {cfg.name} bf16 at full width (d={cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, window {cfg.window}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_expert {cfg.moe.d_expert}); "
+        f"reduced: n_layers {full.n_layers} -> {cfg.n_layers} (the full model's 140.6 B "
+        f"parameters do not fit one 80 GB card); {weights_gb:.2f} GB of weights")
+    log(f"[mixtral] prefill of {B} x {S} tokens {prefill_ms:.1f} ms (cold); {steps} "
+        f"verify_steps of {T} tokens at positions {S} .. {S + steps * T - 1}, "
+        f"{verify_ms:.2f} ms each; launches {launches}; plain-version calls {plain.calls}; "
+        f"dropped pairs {drops.dropped()} of {drops.pairs}; finite {finite}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if not ok:
+        raise AssertionError("mixtral-8x22b at full width failed: non-finite outputs, a "
+                             "plain version, or launch counts off one per layer per call")
+    out["mixtral-8x22b"] = launches
+    del model, params, pages, logits
+    torch.cuda.empty_cache()
+
+    cfg = get_config("pixtral-12b")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init_params(SEED)
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    B, S, T = 2, 256, 16
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    embeds = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    step_embeds = torch.randn((8, B, 1, cfg.d_model), generator=g, device=dev)
+    zero()
+    with no_plain() as plain:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"embeds": embeds})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pages, tbl = paged_pool(cfg, dev, B, (S + 8 + 2 * T) // ps)
+        write_prefill_pages(pages, cache, tbl[:, :S // ps])
+        del cache
+        finite = bool(torch.isfinite(logits).all())
+        tok = logits[:, 0].argmax(-1)
+        t0 = time.perf_counter()
+        for i in range(8):
+            x = step_embeds[i] if i < 4 else tok[:, None]
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            logits, pages = model.decode_step(params, pages, x, pos, block_table=tbl)
+            finite = finite and bool(torch.isfinite(logits).all())
+            tok = logits[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / 8
+        span = torch.cat([tok[:, None], tok[:, None].expand(B, T - 1)], dim=1)
+        for i in range(2):
+            pos = torch.full((B,), S + 8 + i * T, dtype=torch.int32, device=dev)
+            tok_v, lp, pages = model.verify_step(params, pages, span, pos, block_table=tbl)
+            finite = finite and bool(torch.isfinite(lp).all() and (lp <= 0).all())
+            span = tok_v.long()
+    launches = launched()
+    L = cfg.n_layers
+    ok = (finite and plain.calls == 0 and launches["flash_attention_dyn"] == L
+          and launches["decode_attention_paged"] == 8 * L
+          and launches["decode_attention_mixed"] == 2 * L
+          and launches["fused_lmhead_greedy"] == 2)
+    log(f"[pixtral] {cfg.name} bf16 at full width and depth ({L} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, input mode "
+        f"{cfg.input_mode}); reduced: none (the vision encoder is the config's stub: "
+        f"embeddings come in); {weights_gb:.2f} GB of weights")
+    log(f"[pixtral] prefill from ({B}, {S}, {cfg.d_model}) embeddings {prefill_ms:.1f} ms "
+        f"(cold); 8 decode_steps (4 from embeddings, 4 from tokens) {decode_ms:.2f} ms each; "
+        f"2 verify_steps of {T}; launches {launches}; plain-version calls {plain.calls}; "
+        f"finite {finite}; peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if not ok:
+        raise AssertionError("pixtral-12b at full width failed: non-finite outputs, a "
+                             "plain version, or launch counts off one per layer per call")
+    out["pixtral-12b"] = launches
+    del model, params, pages, logits
+    torch.cuda.empty_cache()
+
+    cfg = get_config("smollm-360m")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init_params(SEED)
+    log(f"[smollm-360m] {cfg.name} bf16 at full width and depth through the engine; "
+        f"reduced: none")
+    with no_plain() as plain:
+        launches, _ = main_path(dev, model, params,
+                                [c for c in counters if c.__name__ in
+                                 ("decode_attention_mixed", "fused_lmhead_greedy")])
+    if plain.calls:
+        raise AssertionError("smollm-360m: a plain version ran on the card")
+    out["smollm-360m"] = launches
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def autotune_sweeps(dev) -> None:
+    """Phase 9d: ``sweep_page_size`` (8, 16, 32, 64) and ``sweep_span_width``
+    (1 .. 32) at smollm-135m's and olmoe-1b-7b's attention heads (8 rows
+    of 1024 keys, bf16), and the row ``pick_defaults`` would choose.  The
+    run does not apply it: ``DEFAULTS["cuda"]`` must be unchanged."""
+    from repro_torch.kernels.decode_attention import autotune
+
+    for arch, (Hq, Hkv, D) in (("smollm-135m", (9, 3, 64)), ("olmoe-1b-7b", OLMOE_HEADS)):
+        shape = dict(total_tokens=1024, B=8, Hq=Hq, Hkv=Hkv, D=D, reps=20, device=dev)
+        page_rows = autotune.sweep_page_size(SWEEP_PAGE_SIZES, **shape)
+        span_rows = autotune.sweep_span_width((1, 2, 4, 8, 16, 32), **shape)
+        log(f"[autotune] {arch} ({Hq}/{Hkv} heads of {D}, 8 rows of 1024 keys) page size: "
+            + "; ".join(f"{r['page_size']}: {r['us_per_step']:.2f} us" for r in page_rows))
+        log(f"[autotune] {arch} span width: "
+            + "; ".join(f"{r['span_width']}: {r['us_per_step']:.2f} us "
+                        f"({r['us_per_token']:.3f} us a token)" for r in span_rows))
+        log(f"[autotune] {arch} pick_defaults would choose "
+            f"{json.dumps(autotune.pick_defaults(page_rows, span_rows=span_rows))} "
+            f"(not applied)")
+    unchanged = autotune.DEFAULTS["cuda"] == {"page_size": 16, "chunk_size": 16,
+                                              "draft_len": 3, "lmhead_block_v": 128}
+    log(f"[autotune] DEFAULTS['cuda'] {json.dumps(autotune.DEFAULTS['cuda'])}, unchanged "
+        f"{unchanged}")
+    if not unchanged:
+        raise AssertionError("the sweep changed DEFAULTS['cuda']")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1867,9 +2511,10 @@ def main() -> int:
     scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
     flush = scratch.zero_
     records = [check_attention(dev, flush), check_lmhead(dev, flush),
-               check_paged_decode(dev, flush), check_greedy(dev, flush),
-               check_flash(dev, flush), check_dense_decode(dev, flush),
+               check_paged_decode(dev, flush), *check_greedy(dev, flush),
+               *check_flash(dev, flush), check_dense_decode(dev, flush),
                check_ssd_intra(dev, flush)]
+    records += check_family_kernels(dev, flush)
     del scratch
     small_reference(dev)
     small_reference(dev, chunked=False)
@@ -1913,6 +2558,16 @@ def main() -> int:
         fleet_launches = fleet_path(dev, counters, os.path.join(tmp, "full"), chunked_tokens)
     log(f"[fleet] phases 8 and 8b in {time.perf_counter() - t0:.1f} s; launches {fleet_launches}")
 
+    # the moe and vlm families, smollm-360m, and the autotune sweeps
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    family_references(dev)
+    olmoe = olmoe_path(dev, counters, bucketed_counters)
+    torch.cuda.empty_cache()
+    families = family_paths(dev, counters + bucketed_counters[:2])
+    autotune_sweeps(dev)
+    log(f"[families] phases 9a-9d in {time.perf_counter() - t0:.1f} s")
+
     log(f"[done] greedy_epilogue launches: {launches['greedy_epilogue']} in phase 5b, "
         f"{ssm_launches['greedy_epilogue']} in phase 5c")
     by_kernel = {"paged_mixed_attention": launches["decode_attention_mixed"],
@@ -1921,7 +2576,17 @@ def main() -> int:
                  "greedy_epilogue": launches["greedy_epilogue"] + ssm_launches["greedy_epilogue"],
                  "flash_attention": launches["flash_attention_dyn"],
                  "ssd_intra": ssm_launches["ssd_intra"],
-                 "dense_decode_attention": dense_launches}
+                 "dense_decode_attention": dense_launches,
+                 "paged_mixed_attention[olmoe-1b-7b]": olmoe["chunked"]["decode_attention_mixed"],
+                 "lmhead_greedy[olmoe-1b-7b]": olmoe["chunked"]["fused_lmhead_greedy"],
+                 "paged_mixed_attention[pixtral-12b]":
+                     families["pixtral-12b"]["decode_attention_mixed"],
+                 "paged_decode_attention[olmoe-1b-7b]":
+                     olmoe["bucketed"]["decode_attention_paged"],
+                 "greedy_epilogue[olmoe-1b-7b]": olmoe["bucketed"]["greedy_epilogue"],
+                 "flash_attention[olmoe-1b-7b]": olmoe["bucketed"]["flash_attention_dyn"]}
+    for arch in ("mixtral-8x22b", "pixtral-12b", "smollm-360m"):
+        by_kernel[f"lmhead_greedy[{arch}]"] = families[arch]["fused_lmhead_greedy"]
     for rec in records:
         rec["launches"] = by_kernel[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -58,8 +58,9 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
 
 
 # leaves the JAX package keeps in float32 whatever ``cfg.dtype`` is (the
-# Mamba-2 layer's decay, skip and step-bias vectors, ``mamba_lm.py``)
-F32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
+# Mamba-2 layer's decay, skip and step-bias vectors, ``mamba_lm.py``; the
+# MoE router, ``lm.py``)
+F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "router"})
 
 
 def _nest(tree: dict, key: str, value) -> None:

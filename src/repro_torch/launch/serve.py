@@ -5,6 +5,10 @@ plane driving decode-slot elasticity.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --policy appdata --device cuda
 
+``--arch`` takes any name of :data:`repro_torch.configs.ARCHS`:
+``olmoe-1b-7b`` and ``mixtral-8x22b`` (moe), ``pixtral-12b`` (vlm, served
+as tokens on the mixed step; its bucketed prefill reads embeddings, as in
+the JAX engine) and the dense archs run the paged paths;
 ``--arch mamba2-1.3b`` serves the ssm family through the engine's
 dense-cache fallback (its prefill runs the SSD intra-chunk kernel).
 ``--replicas N`` (N > 1) serves through the replica fleet
@@ -274,7 +278,8 @@ def serve_fleet(args, model, params, serve_cfg, reqs, policy) -> int:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="one of repro_torch.configs.ARCHS")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default 'cuda' needs a GPU")

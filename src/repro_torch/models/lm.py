@@ -1,11 +1,16 @@
-"""Decoder-only LM, dense / GQA / SWA / local-global path (PyTorch).
+"""Decoder-only LM, dense / GQA / SWA / local-global / MoE path (PyTorch).
 
 Counterpart of ``repro.models.lm``.  Parameters are a plain dictionary
 with the JAX tree's names: ``embed`` (V, d), ``ln_f``, optional ``lm_head``
 (d, V), and ``blocks``, a list with one dictionary of weights per layer
 (``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``, ``wo``, optional ``bq``/``bk``/
-``bv``, ``mlp``: ``w_gate``, ``w_up``, ``w_down``).  The JAX ``lax.scan``
-over stacked layers becomes a Python loop over that list.
+``bv``, and either ``mlp``: ``w_gate``, ``w_up``, ``w_down`` or, for the
+moe family, ``moe``: ``router`` (kept in float32), ``w_gate``, ``w_up``,
+``w_down``).  The JAX ``lax.scan`` over stacked layers becomes a Python
+loop over that list.  With ``cfg.input_mode == "embeddings"`` (the vlm
+family) :func:`forward` and :func:`prefill` take ``batch["embeds"]`` and
+:func:`decode_step` a (B, 1, d) float tensor in the place of the token;
+:func:`verify_step` always embeds tokens, as in the JAX package.
 
 :func:`verify_step` is the chunked serving path: on a CUDA device each
 layer's attention runs the paged mixed-attention kernel and the lm head runs
@@ -30,6 +35,7 @@ from repro_torch.models.attention import NEG_INF, sdpa
 from repro_torch.models.common import (
     ModelConfig, apply_rope, gated_mlp, init_dense, rms_norm, rope_tables,
 )
+from repro_torch.models.moe import moe_ffn
 from repro_torch.serving import kvcache
 
 STREAM_THRESHOLD = 4096
@@ -45,9 +51,6 @@ def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     dev, dt = gen.device, cfg.dtype
-    if cfg.moe:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP.md Queue 1: other families)")
     p = {
         "ln1": torch.ones((d,), dtype=dt, device=dev),
         "ln2": torch.ones((d,), dtype=dt, device=dev),
@@ -60,11 +63,21 @@ def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
         p["bq"] = torch.zeros((Hq * hd,), dtype=dt, device=dev)
         p["bk"] = torch.zeros((Hkv * hd,), dtype=dt, device=dev)
         p["bv"] = torch.zeros((Hkv * hd,), dtype=dt, device=dev)
-    p["mlp"] = {
-        "w_gate": init_dense(gen, (d, cfg.d_ff), dt),
-        "w_up": init_dense(gen, (d, cfg.d_ff), dt),
-        "w_down": init_dense(gen, (cfg.d_ff, d), dt, scale=cfg.d_ff ** -0.5),
-    }
+    if cfg.moe:
+        m = cfg.moe
+        p["moe"] = {       # the router stays float32 whatever cfg.dtype is
+            "router": init_dense(gen, (d, m.n_experts), torch.float32),
+            "w_gate": init_dense(gen, (m.n_experts, d, m.d_expert), dt),
+            "w_up": init_dense(gen, (m.n_experts, d, m.d_expert), dt),
+            "w_down": init_dense(gen, (m.n_experts, m.d_expert, d), dt,
+                                 scale=m.d_expert ** -0.5),
+        }
+    else:
+        p["mlp"] = {
+            "w_gate": init_dense(gen, (d, cfg.d_ff), dt),
+            "w_up": init_dense(gen, (d, cfg.d_ff), dt),
+            "w_down": init_dense(gen, (cfg.d_ff, d), dt, scale=cfg.d_ff ** -0.5),
+        }
     return p
 
 
@@ -111,11 +124,19 @@ def _project_qkv(x, bp, cfg: ModelConfig):
             v.reshape(B, S, cfg.n_kv_heads, hd))
 
 
-def _ffn(h, bp, cfg: ModelConfig):
+def _ffn(h, bp, cfg: ModelConfig, *, aux: bool = False):
+    """The block's feed-forward on h (B, S, d) -> (out, aux loss): the MoE
+    layer over all B * S tokens at once (routing and capacity see the whole
+    batch, idle rows included, as in the JAX package), else the gated MLP.
+    The load-balance loss is computed only with ``aux`` (only
+    :func:`forward` returns it), else it is 0.0.  The JAX package's
+    expert-parallel branch (``moe_ep``) waits for the port's sharding
+    (ROADMAP.md Queue 1 item 8)."""
     if cfg.moe:
-        raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP.md Queue 1: other families)")
-    return gated_mlp(h, bp["mlp"]["w_gate"], bp["mlp"]["w_up"], bp["mlp"]["w_down"])
+        B, S, d = h.shape
+        out, loss = moe_ffn(h.reshape(B * S, d), bp["moe"], cfg.moe, aux=aux)
+        return out.reshape(B, S, d), loss if aux else 0.0
+    return gated_mlp(h, bp["mlp"]["w_gate"], bp["mlp"]["w_up"], bp["mlp"]["w_down"]), 0.0
 
 
 def _kv_quantize(x):
@@ -166,8 +187,9 @@ def _prefill_attention(q, k, v, window: int):
     return flash_attention_dyn(q, k, v, window)
 
 
-def block_forward(x, bp, window: int, cos, sin, cfg: ModelConfig):
-    """Full-sequence block: x (B, S, d) -> (x, (k, v)), k/v after RoPE."""
+def block_forward(x, bp, window: int, cos, sin, cfg: ModelConfig, *, aux: bool = False):
+    """Full-sequence block: x (B, S, d) -> (x, (k, v), aux), k/v after RoPE;
+    the MoE load-balance loss only with ``aux`` (else 0.0)."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(h, bp, cfg)
     q = apply_rope(q, cos, sin)
@@ -175,18 +197,21 @@ def block_forward(x, bp, window: int, cos, sin, cfg: ModelConfig):
     o = _prefill_attention(q, k, v, window)
     x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + _ffn(h, bp, cfg), (k, v)
+    f, loss = _ffn(h, bp, cfg, aux=aux)
+    return x + f, (k, v), loss
 
 
 def block_decode(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
-                 cfg: ModelConfig, cache_ks=None, cache_vs=None, *, block_table=None):
+                 cfg: ModelConfig, cache_ks=None, cache_vs=None, *, paged=None):
     """One-token decode: x (B, 1, d).  ``cache_ks/vs``: int8 scale caches.
 
-    With ``block_table`` (B, n) the caches are paged pools (P, ps, Hkv, hd):
-    row b's token at logical position ``pos[b]`` is written into its page
-    first (in place), then the query attends keys ``[0, pos]`` of its row
-    through :func:`decode_attention_paged` (the CUDA kernel on the card,
-    gather + vector mask + sdpa on the CPU).
+    With ``paged``, the step's :class:`~repro_torch.serving.kvcache.PagedOps`
+    over its block table (B, n) -- one instance shared by every layer, so
+    the write slots are computed once a step -- the caches are paged pools
+    (P, ps, Hkv, hd): row b's token at logical position ``pos[b]`` is
+    written into its page first (in place), then the query attends keys
+    ``[0, pos]`` of its row through :func:`decode_attention_paged` (the
+    CUDA kernel on the card, gather + vector mask + sdpa on the CPU).
 
     Without one they are dense (B, S_max, Hkv, hd) caches, ``pos`` a scalar
     (every row) or a (B,) vector (per row): the token is written in place
@@ -198,8 +223,8 @@ def block_decode(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
     q, k, v = _project_qkv(h, bp, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if block_table is not None:
-        ops = kvcache.PagedOps(block_table)
+    if paged is not None:
+        ops = paged
     elif torch.is_tensor(pos) and pos.dim() == 1:
         ops = kvcache.DenseVectorOps()
     else:
@@ -213,8 +238,8 @@ def block_decode(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
         k_store, v_store = k, v
     ops.write(cache_k, k_store, pos)
     ops.write(cache_v, v_store, pos)
-    if block_table is not None:
-        o = decode_attention_paged(q, cache_k, cache_v, block_table, pos + 1,
+    if paged is not None:
+        o = decode_attention_paged(q, cache_k, cache_v, paged.block_table, pos + 1,
                                    window=window, k_scale=cache_ks, v_scale=cache_vs)
     else:
         k_eff, v_eff = cache_k, cache_v
@@ -224,38 +249,38 @@ def block_decode(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
         o = sdpa(q, k_eff, v_eff, ops.mask(k_eff.shape[1], pos, window))
     x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + _ffn(h, bp, cfg)
+    return x + _ffn(h, bp, cfg)[0]
 
 
 def block_verify(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
-                 cfg: ModelConfig, cache_ks=None, cache_vs=None, *, block_table):
+                 cfg: ModelConfig, cache_ks=None, cache_vs=None, *, paged):
     """Span decode: x (B, T, d), each row's T tokens at consecutive logical
     positions starting at ``pos[b]``.
 
     The span's KV is written into the paged pool first (in place), so query
     t attends its own key; then per-query causal attention runs over the
     row's pages through :func:`decode_attention_mixed` (the CUDA kernel on
-    the card, gather + span mask + sdpa on the CPU)."""
+    the card, gather + span mask + sdpa on the CPU).  ``paged``: the step's
+    ``PagedOps``, as in :func:`block_decode`."""
     int8_kv = cache_ks is not None
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(h, bp, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    ops = kvcache.PagedOps(block_table)
     if int8_kv:
         k_store, k_sc = _kv_quantize(k)
         v_store, v_sc = _kv_quantize(v)
-        ops.write_span(cache_ks, k_sc, pos)
-        ops.write_span(cache_vs, v_sc, pos)
+        paged.write_span(cache_ks, k_sc, pos)
+        paged.write_span(cache_vs, v_sc, pos)
     else:
         k_store, v_store = k, v
-    ops.write_span(cache_k, k_store, pos)
-    ops.write_span(cache_v, v_store, pos)
-    o = decode_attention_mixed(q, cache_k, cache_v, block_table, pos,
+    paged.write_span(cache_k, k_store, pos)
+    paged.write_span(cache_v, v_store, pos)
+    o = decode_attention_mixed(q, cache_k, cache_v, paged.block_table, pos,
                                window=window, k_scale=cache_ks, v_scale=cache_vs)
     x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + _ffn(h, bp, cfg)
+    return x + _ffn(h, bp, cfg)[0]
 
 
 # ---------------------------------------------------------------------------------
@@ -271,25 +296,35 @@ def _lm_head(params, h, cfg: ModelConfig):
     return (h @ _lm_head_weight(params, cfg)).float()
 
 
-def _run_blocks(params, tokens, cfg: ModelConfig):
-    """Embed and run every block over full sequences -> (x after ln_f,
-    per-layer [(k, v)])."""
-    x = params["embed"][tokens.long()]
+def _embed_in(params, batch, cfg: ModelConfig):
+    """The model's input (B, S, d): ``batch["embeds"]`` cast to ``cfg.dtype``
+    for the embeddings input mode, else the embedded ``batch["tokens"]``."""
+    if cfg.input_mode == "embeddings":
+        return batch["embeds"].to(cfg.dtype)
+    return params["embed"][batch["tokens"].long()]
+
+
+def _run_blocks(params, x, cfg: ModelConfig, *, aux: bool = False):
+    """Run every block over the embedded input x (B, S, d) -> (x after ln_f,
+    per-layer [(k, v)], summed aux loss: 0.0 unless ``aux``)."""
     S = x.shape[1]
     cos, sin = rope_tables(torch.arange(S, device=x.device),
                            cfg.resolved_head_dim, cfg.rope_theta)
     kvs = []
+    total = 0.0
     for bp, w in zip(params["blocks"], layer_windows(cfg)):
-        x, kv = block_forward(x, bp, w, cos, sin, cfg)
+        x, kv, a = block_forward(x, bp, w, cos, sin, cfg, aux=aux)
         kvs.append(kv)
-    return rms_norm(x, params["ln_f"], cfg.norm_eps), kvs
+        total = total + a
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), kvs, total
 
 
 def forward(params, batch, cfg: ModelConfig):
-    """Full-sequence forward -> (logits (B, S, V) f32, aux 0.0).  The greedy
-    oracle of the tests; on the card its attention is the flash kernel."""
-    x, _ = _run_blocks(params, batch["tokens"], cfg)
-    return _lm_head(params, x, cfg), 0.0
+    """Full-sequence forward -> (logits (B, S, V) f32, aux): the MoE layers'
+    summed load-balance loss (0.0 without MoE).  The greedy oracle of the
+    tests; on the card its attention is the flash kernel."""
+    x, _, aux = _run_blocks(params, _embed_in(params, batch, cfg), cfg, aux=True)
+    return _lm_head(params, x, cfg), aux
 
 
 def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
@@ -304,9 +339,8 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
     of the padding).  None takes the last position.  The cache is padded to
     ``max_len``; an int8 cache is quantized after attention, which runs on
     the unquantized K/V."""
-    tokens = batch["tokens"]
-    x, kvs = _run_blocks(params, tokens, cfg)
-    B, S = tokens.shape
+    x, kvs, _ = _run_blocks(params, _embed_in(params, batch, cfg), cfg)
+    B, S = x.shape[:2]
     max_len = max_len or S
     if last_idx is None:
         x_last = x[:, -1:]
@@ -330,25 +364,30 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
 
 
 def decode_step(params, cache, token, pos, cfg: ModelConfig, *, block_table=None):
-    """One token per row: token (B, 1).  With ``block_table`` (B, n) the
+    """One token per row: token (B, 1), or (B, 1, d) embeddings for the
+    embeddings input mode.  With ``block_table`` (B, n) the
     cache leaves are paged pools (L, P, ps, ...) and ``pos`` (B,) holds each
     row's logical position; without, they are the dense (L, B, S_max, ...)
     cache of :func:`init_cache` and ``pos`` is a scalar (every row) or a
     (B,) vector.  Returns ``(logits (B, 1, V) f32, cache)``; the token's KV
     is written in place and the same dictionary is returned."""
-    x = params["embed"][token.long()]
+    if cfg.input_mode == "embeddings" and token.dim() == 3:
+        x = token.to(cfg.dtype)
+    else:
+        x = params["embed"][token.long()]
     if torch.is_tensor(pos) and pos.dim() == 1:
         cos, sin = rope_tables(pos.long()[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     else:
         cos, sin = rope_tables(torch.tensor([int(pos)], device=x.device),
                                cfg.resolved_head_dim, cfg.rope_theta)
     int8_kv = cfg.kv_cache_dtype == "int8"
+    paged = kvcache.PagedOps(block_table) if block_table is not None else None
     for layer, (bp, w) in enumerate(zip(params["blocks"], layer_windows(cfg))):
         x = block_decode(x, bp, w, cache["k"][layer], cache["v"][layer], pos,
                          cos, sin, cfg,
                          cache_ks=cache["k_scale"][layer] if int8_kv else None,
                          cache_vs=cache["v_scale"][layer] if int8_kv else None,
-                         block_table=block_table)
+                         paged=paged)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return _lm_head(params, x, cfg), cache
 
@@ -385,12 +424,13 @@ def verify_step(params, cache, tokens, pos, cfg: ModelConfig, *, block_table):
     cos, sin = rope_tables(pos.long()[:, None] + span[None, :],
                            cfg.resolved_head_dim, cfg.rope_theta)
     int8_kv = cfg.kv_cache_dtype == "int8"
+    paged = kvcache.PagedOps(block_table)
     for layer, (bp, w) in enumerate(zip(params["blocks"], layer_windows(cfg))):
         x = block_verify(x, bp, w, cache["k"][layer], cache["v"][layer], pos,
                          cos, sin, cfg,
                          cache_ks=cache["k_scale"][layer] if int8_kv else None,
                          cache_vs=cache["v_scale"][layer] if int8_kv else None,
-                         block_table=block_table)
+                         paged=paged)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     tok, lp = fused_lmhead_greedy(x, _lm_head_weight(params, cfg))
     return tok, lp, cache

@@ -50,10 +50,10 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, *, device=None) -> Model:
-    """dense/moe bind :mod:`repro_torch.models.lm` (paged, with the mixed
-    step); ssm/hybrid bind :mod:`repro_torch.models.mamba_lm`, which the
-    engine serves through its dense-cache fallback."""
-    if cfg.family in ("dense", "moe"):
+    """dense/moe/vlm bind :mod:`repro_torch.models.lm` (paged, with the
+    mixed step); ssm/hybrid bind :mod:`repro_torch.models.mamba_lm`, which
+    the engine serves through its dense-cache fallback."""
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import lm as mod
         paged = True
     elif cfg.family in ("ssm", "hybrid"):

@@ -11,11 +11,22 @@ is never allocated and absorbs the writes of dead rows.
 Where the JAX code rebuilt the pool functionally (``.at[].set``), the port
 writes pages in place with ``index_copy_``: the pool is the largest tensor
 of a serving replica, and a copy per layer per step would double it.
+
+Several writes may land on one trash slot.  The JAX package calls them
+garbage, and for a dense model they are: no live row reads page 0.  In a
+MoE layer, though, idle rows (which attend page 0) share expert capacity
+with live rows, so page 0's contents reach the tokens.  Every paged write
+therefore resolves duplicates to the last write in row-major order -- the
+order of the CPU's sequential scatter, and of the JAX package's on the CPU
+-- so the card writes the same bits in every run (:func:`_last_writer`),
+for every family.  The slots a step writes depend only on its block table
+and positions, so :class:`PagedOps` computes them and their last-writer
+order once a step and reuses them for every layer, k and v.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -23,9 +34,50 @@ import torch
 TRASH_PAGE = 0
 
 
+def _last_writer(idx: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """For each write of ``idx`` (slot indices in ``[0, n_slots)``), the
+    position of the last write to the same slot: gathering the sources
+    through it makes every duplicate write copy the same value, so the
+    result does not depend on the order the device runs them in."""
+    order = torch.arange(idx.numel(), device=idx.device)
+    last = torch.full((n_slots,), -1, dtype=torch.long, device=idx.device)
+    return last.scatter_reduce_(0, idx, order, reduce="amax")[idx]
+
+
 # ---------------------------------------------------------------------------------
 # device-side page ops
 # ---------------------------------------------------------------------------------
+
+def _token_slots(block_table: torch.Tensor, pos: torch.Tensor, ps: int) -> torch.Tensor:
+    """(B,) flat pool slots of one token per row at logical ``pos[b]``; a
+    position past the table takes the last table entry, as the JAX gather's
+    index clamping does."""
+    B, n = block_table.shape
+    p = pos.long()
+    rows = torch.arange(B, device=p.device)
+    return block_table.long()[rows, (p // ps).clamp(max=n - 1)] * ps + p % ps
+
+
+def _span_slots(block_table: torch.Tensor, pos: torch.Tensor, T: int, ps: int) -> torch.Tensor:
+    """(B * T,) flat pool slots, row-major, of a T-token span per row from
+    logical ``pos[b]``; positions past the table are clamped to the row's
+    last logical slot."""
+    n = block_table.shape[1]
+    span = torch.arange(T, device=pos.device)
+    p = (pos.long()[:, None] + span[None, :]).clamp(0, n * ps - 1)   # (B, T)
+    pages = torch.gather(block_table.long(), 1, p // ps)              # (B, T)
+    return (pages * ps + p % ps).reshape(-1)
+
+
+def _scatter(cache: torch.Tensor, src: torch.Tensor, idx: torch.Tensor,
+             last: torch.Tensor) -> torch.Tensor:
+    """Write rows of ``src`` (N, *rest) into the pool's flat slots ``idx``
+    (N,), in place; ``last`` (:func:`_last_writer` of ``idx``) makes every
+    duplicate copy the last writer's row."""
+    P, ps = cache.shape[0], cache.shape[1]
+    cache.view((P * ps,) + cache.shape[2:]).index_copy_(0, idx, src[last].to(cache.dtype))
+    return cache
+
 
 def paged_update(cache: torch.Tensor, new: torch.Tensor,
                  block_table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -33,19 +85,14 @@ def paged_update(cache: torch.Tensor, new: torch.Tensor,
 
     cache: (P, ps, *rest), contiguous; new: (B, 1, *rest); block_table:
     (B, n); pos: (B,) logical write positions.  Rows whose table entry is
-    the trash page write harmlessly into page 0.  A position past the table
-    (a parked full row) takes the last table entry, as the JAX gather's
-    index clamping does; such a row's KV is never read again.  Returns
-    ``cache``.
+    the trash page write harmlessly into page 0, the last such row's write
+    winning (module docstring).  A position past the table (a parked full
+    row) takes the last table entry, as the JAX gather's index clamping
+    does; such a row's KV is never read again.  Returns ``cache``.
     """
     P, ps = cache.shape[0], cache.shape[1]
-    rest = cache.shape[2:]
-    B, n = block_table.shape
-    p = pos.long()
-    rows = torch.arange(B, device=p.device)
-    idx = block_table.long()[rows, (p // ps).clamp(max=n - 1)] * ps + p % ps   # (B,)
-    cache.view((P * ps,) + rest).index_copy_(0, idx, new[:, 0].to(cache.dtype))
-    return cache
+    idx = _token_slots(block_table, pos, ps)
+    return _scatter(cache, new[:, 0], idx, _last_writer(idx, P * ps))
 
 
 def paged_update_span(cache: torch.Tensor, new: torch.Tensor,
@@ -59,20 +106,15 @@ def paged_update_span(cache: torch.Tensor, new: torch.Tensor,
     allocated pages hit TRASH table entries and land in page 0; positions
     past the table itself are clamped to the row's last logical slot, whose
     entry is TRASH unless the row is full -- and a full row only overflows
-    after it has parked, when its KV is never read again.  Returns ``cache``.
+    after it has parked, when its KV is never read again.  Duplicate writes
+    resolve to the last one in row-major order (module docstring).  Returns
+    ``cache``.
     """
     P, ps = cache.shape[0], cache.shape[1]
-    rest = cache.shape[2:]
     B, T = new.shape[0], new.shape[1]
-    n = block_table.shape[1]
-    span = torch.arange(T, device=pos.device)
-    p = (pos.long()[:, None] + span[None, :]).clamp(0, n * ps - 1)   # (B, T)
-    pages = torch.gather(block_table.long(), 1, p // ps)              # (B, T)
-    idx = pages * ps + p % ps
-    flat = cache.view((P * ps,) + rest)
-    flat.index_copy_(0, idx.reshape(-1),
-                     new.reshape((B * T,) + rest).to(cache.dtype))
-    return cache
+    idx = _span_slots(block_table, pos, T, ps)
+    return _scatter(cache, new.reshape((B * T,) + cache.shape[2:]), idx,
+                    _last_writer(idx, P * ps))
 
 
 def paged_gather(cache: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
@@ -98,18 +140,19 @@ def write_prefill_pages(pages: dict, cache: dict, page_ids: torch.Tensor) -> dic
     (pb // ps,) for B == 1) -- real pages first, trash (0) for the bucket
     overhang past each prompt.  Real page ids are unique across rows
     (free-list ownership).  Several rows may scatter their overhang into the
-    trash page; ``index_copy_`` then lets any one of the duplicate writes
-    win, which is harmless: every write to page 0 is garbage and page 0 is
-    never read as a row's KV.  Returns ``pages``.
+    trash page; the last of them wins (:func:`_last_writer`), in every run:
+    padding rows of a later MoE decode step attend page 0, and their
+    routing shares expert capacity with live rows.  Returns ``pages``.
     """
-    ids = page_ids.reshape(-1).long()
+    pg0 = next(iter(pages.values()))
+    ids = page_ids.reshape(-1).long().to(pg0.device)
+    last = _last_writer(ids, pg0.shape[1])          # every leaf has the same pages
     for name, pg in pages.items():
         c = cache[name]
         L, ps = pg.shape[0], pg.shape[2]
-        rest = pg.shape[3:]
         B, nc = c.shape[1], c.shape[2] // ps
-        chunks = c.reshape((L, B * nc, ps) + rest).to(pg.dtype)
-        pg.index_copy_(1, ids.to(pg.device), chunks)
+        chunks = c.reshape((L, B * nc, ps) + pg.shape[3:])[:, last]
+        pg.index_copy_(1, ids, chunks.to(pg.dtype))
     return pages
 
 
@@ -182,15 +225,34 @@ class DenseVectorOps:
 @dataclass
 class PagedOps:
     """Block-table paged cache: pool leaves are (P, ps, *rest), shared by all
-    rows; logical order is recovered by gathering in table order."""
+    rows; logical order is recovered by gathering in table order.
+
+    One instance serves one step: the slots of its writes and their
+    last-writer order (module docstring) depend only on the table and
+    ``pos``, so they are computed on the first write and reused by every
+    later write with the same ``pos`` tensor and pool shape -- each layer's
+    k and v, and the int8 scales."""
 
     block_table: torch.Tensor                                          # (B, n)
+    _plans: dict = field(default_factory=dict, repr=False)
+
+    def _plan(self, cache, pos, T: int | None):
+        P, ps = cache.shape[0], cache.shape[1]
+        key = (P, ps, T)
+        plan = self._plans.get(key)
+        if plan is None or plan[0] is not pos:
+            idx = (_token_slots(self.block_table, pos, ps) if T is None
+                   else _span_slots(self.block_table, pos, T, ps))
+            plan = self._plans[key] = (pos, idx, _last_writer(idx, P * ps))
+        return plan[1:]
 
     def write(self, cache, new, pos):
-        return paged_update(cache, new, self.block_table, pos)
+        return _scatter(cache, new[:, 0], *self._plan(cache, pos, None))
 
     def write_span(self, cache, new, pos):
-        return paged_update_span(cache, new, self.block_table, pos)
+        B, T = new.shape[0], new.shape[1]
+        return _scatter(cache, new.reshape((B * T,) + cache.shape[2:]),
+                        *self._plan(cache, pos, T))
 
     def view(self, cache):
         return paged_gather(cache, self.block_table)

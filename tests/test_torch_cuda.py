@@ -781,3 +781,161 @@ def test_zamba_head_dim_80_on_card_matches_cpu():
         toks[where] = torch.stack(out, 1).cpu()
     assert torch.equal(toks["cuda"], toks["cpu"])
     torch.testing.assert_close(logits_at["cuda"], logits_at["cpu"], atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------------
+# the moe and vlm families: the main-path kernels at their shapes, and the
+# float32 references
+# ---------------------------------------------------------------------------------
+
+def _pool_args(dev, dtype, T, Hq, Hkv, D, ps, n, starts, seed):
+    """q, k/v pages, table and starts of a seeded pool (``mixed_inputs``) on
+    the card: bf16 q with f32-cast, bf16 or int8 pages."""
+    q, kp, vp, ks, vs, tbl, st = mixed_inputs(Hq // Hkv, dtype == "int8", T=T, Hkv=Hkv, D=D,
+                                              ps=ps, n=n, starts=starts, seed=seed)
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    args = [torch.from_numpy(q).to(dev, dt)]
+    if dtype == "int8":
+        args += [torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)]
+        sc = dict(k_scale=torch.from_numpy(ks).to(dev), v_scale=torch.from_numpy(vs).to(dev))
+    else:
+        args += [torch.from_numpy(kp).to(dev, dt), torch.from_numpy(vp).to(dev, dt)]
+        sc = {}
+    return args + [torch.from_numpy(tbl).to(dev), torch.from_numpy(st).to(dev)], sc
+
+
+# (config, Hq, Hkv, D, window) of the families' attention
+FAMILY_HEADS = [("olmoe-1b-7b", 16, 16, 128, -1), ("mixtral-8x22b", 48, 8, 128, 4096),
+                ("mixtral-8x22b short window", 48, 8, 128, 100),
+                ("pixtral-12b", 32, 8, 128, -1), ("smollm-360m", 15, 5, 64, -1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("arch,Hq,Hkv,D,window", FAMILY_HEADS)
+def test_mixed_attention_kernel_at_family_shapes(arch, Hq, Hkv, D, window, dtype):
+    """The mixed kernel at each new config's heads: 8 rows of 16 queries
+    over 16-token pages, a 64-entry table (olmoe: group 1, 16 query rows a
+    kv head, the smallest M the split kernel takes)."""
+    dev = require_cuda()
+    args, sc = _pool_args(dev, dtype, 16, Hq, Hkv, D, 16, 64,
+                          [0, 17, 130, 255, 511, 640, 893, 1000], seed=Hq + D)
+    before = decode_attention_mixed.launches
+    out = decode_attention_mixed(*args, window=window, **sc)
+    torch.cuda.synchronize()
+    assert decode_attention_mixed.launches == before + 1
+    ref = paged_mixed_attention_plain(*args, window=window, **sc)
+    assert torch.isfinite(out).all()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+@pytest.mark.parametrize("Hq,Hkv,D", [(9, 3, 64), (16, 16, 128)])
+def test_paged_decode_kernel_page_sizes(Hq, Hkv, D, ps, dtype):
+    """The split-K decode kernel at the page sizes the autotune sweep times,
+    at smollm-135m's and olmoe-1b-7b's heads, 1024 keys a row at most."""
+    dev = require_cuda()
+    lengths = [1, ps, ps + 1, 255, 512, 1000, 1024, 700]
+    args, sc = _decode_args(dev, dtype, Hq // Hkv, Hkv, D, ps, 1024 // ps, lengths, seed=ps)
+    for window in (-1, 100):
+        _check_decode_split(args, sc, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,V,tied", [(128, 2048, 50304, False), (128, 6144, 32768, False),
+                                        (128, 5120, 131072, False), (128, 960, 49152, True),
+                                        (8, 2048, 50304, False)])
+def test_lmhead_bf16_kernel_at_family_widths(N, d, V, tied):
+    """The bf16 lm-head at olmoe-1b-7b's (untied, d 2048, V 50304),
+    mixtral-8x22b's (6144, 32768), pixtral-12b's (5120, 131072) and the
+    tied smollm-360m's (960, 49152) heads."""
+    dev = require_cuda()
+    h, emb = _lmhead_bf16(dev, N, d, V, seed=d)
+    _check_lmhead(h, emb.T if tied else emb.T.contiguous())
+
+
+def _moe_engine_tokens(cfg, chunked, where, cpu_params):
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    kw = dict(max_batch=4, max_len=64, page_size=8, chunked_prefill=chunked)
+    if chunked:
+        kw.update(chunk_size=8, draft_len=4)
+    eng = ServingEngine(build_model(cfg, device=where), tree_to(cpu_params, where),
+                        ServeConfig(**kw), device=where)
+    rng = np.random.default_rng(1)
+    for i in range(6):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(4, 30))),
+                           max_new_tokens=int(rng.integers(4, 16))))
+    eng.run_until_drained()
+    eng.kv.check_invariants()
+    return {r.rid: (r.output, r.score) for r in eng.completed}, eng.step_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "bucketed"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x22b"])
+def test_moe_engine_on_card_matches_cpu(arch, chunked):
+    """The MoE smoke configs at float32 and the published capacity factor
+    1.25: identical tokens and step counts on the card (kernels) and the
+    CPU (plain versions), scores within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import MoEConfig
+    require_cuda()
+    base = get_smoke_config(arch)
+    m = base.moe
+    cfg = dataclasses.replace(base, dtype=torch.float32,
+                              moe=MoEConfig(m.n_experts, m.top_k, m.d_expert, 1.25))
+    cpu_params = build_model(cfg, device="cpu").init_params(0)
+    cpu, cpu_steps = _moe_engine_tokens(cfg, chunked, "cpu", cpu_params)
+    card, card_steps = _moe_engine_tokens(cfg, chunked, "cuda", cpu_params)
+    assert card_steps == cpu_steps
+    assert {r: o for r, (o, _) in card.items()} == {r: o for r, (o, _) in cpu.items()}
+    for rid, (_, score) in cpu.items():
+        assert abs(card[rid][1] - score) < 1e-4
+
+
+@pytest.mark.cuda
+def test_vlm_forward_from_embeddings_on_card_matches_cpu():
+    """pixtral-smoke at float32: forward and prefill from (B, S, d)
+    embeddings, then decode steps from (B, 1, d) embeddings over the dense
+    cache, card against CPU within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    dev = require_cuda()
+    cfg = dataclasses.replace(get_smoke_config("pixtral-12b"), dtype=torch.float32)
+    model = build_model(cfg, device="cpu")
+    params = model.init_params(0)
+    rng = np.random.default_rng(4)
+    embeds = torch.from_numpy(rng.normal(size=(2, 37, cfg.d_model)).astype(np.float32))
+    step = torch.from_numpy(rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32))
+    outs = {}
+    for where, m in (("cpu", model), ("cuda", build_model(cfg, device=dev))):
+        p = tree_to(params, where)
+        logits, _ = m.forward(p, {"embeds": embeds.to(where)})
+        last, cache = m.prefill(p, {"embeds": embeds.to(where)}, max_len=48)
+        dec, cache = m.decode_step(p, cache, step.to(where), 37)
+        outs[where] = [t.cpu() for t in (logits, last, dec)]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_duplicate_trash_writes_resolve_on_card_as_on_cpu():
+    """On the card, rows writing the same trash slots leave the bits the
+    CPU's sequential scatter leaves, in every run."""
+    from repro_torch.serving.kvcache import paged_update_span
+    dev = require_cuda()
+    rng = np.random.default_rng(4)
+    pages = torch.from_numpy(rng.normal(size=(40, 16, 4, 64)).astype(np.float32))
+    new = torch.from_numpy(rng.normal(size=(8, 16, 4, 64)).astype(np.float32))
+    tbl = torch.zeros((8, 4), dtype=torch.int32)
+    tbl[0, :2] = torch.tensor([3, 9])
+    pos = torch.tensor([20, 0, 0, 5, 0, 0, 9, 0], dtype=torch.int32)
+    ref = paged_update_span(pages.clone(), new, tbl, pos)
+    for _ in range(3):
+        out = paged_update_span(pages.to(dev), new.to(dev), tbl.to(dev), pos.to(dev))
+        assert torch.equal(out.cpu(), ref)
