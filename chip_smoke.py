@@ -99,6 +99,22 @@ Phases, each of which fails the run if it fails:
 9d. the autotune sweeps (page size, span width) at smollm-135m's and
    olmoe-1b-7b's heads and the row ``pick_defaults`` would choose, which
    is not applied.
+10a. training references at float32 with ``remat="block"``: the smoke
+   configs of smollm-135m, mamba2-1.3b and whisper-small, one step's loss
+   and every gradient leaf on the card against the CPU, then a 5-step loss
+   curve each;
+10b. smollm-135m ``CONFIG`` (bf16) trained 30 steps on the TokenStream at
+   B 8 x S 512 with a train-state checkpoint after step 15, then restored
+   from it and steps 15-29 trained again in the same process: the loss
+   falls and the resumed losses repeat the first run's; ms per step,
+   tokens/s, peak memory and the 6ND share;
+10c. qwen2.5-3b ``CONFIG`` 3 steps at B 4 x S 512 and mamba2-1.3b
+   ``CONFIG`` 2 steps at B 2 x S 512: ms per step and peak memory;
+10d. whisper-small ``CONFIG`` at model level: prefill from (2, 1500, 768)
+   frame embeddings and a 32-token prompt, 16 decode steps, one train
+   step.  No kernel launches during any train step (every counter is
+   read around each step): training runs the plain route, as the JAX
+   package trains with its kernels off.
 
 The second-to-last line of stdout is the ``kernels`` JSON record (the greedy
 epilogue's launches are phase 5b's plus phase 5c's; a record named
@@ -1225,11 +1241,9 @@ def check_family_kernels(dev, flush) -> list[dict]:
 # ---------------------------------------------------------------------------------
 
 def to_device(tree, dev):
-    if isinstance(tree, dict):
-        return {k: to_device(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, dev) for v in tree]
-    return tree.to(dev)
+    """A tree of tensors (dicts and lists) moved to ``dev``."""
+    from repro_torch.pytree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 def small_reference(dev, *, chunked: bool = True) -> None:
@@ -1525,11 +1539,8 @@ def union_ms(events) -> float:
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, list):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
+    from repro_torch.pytree import tree_leaves
+    return tree_leaves(tree)
 
 
 def mha_decode_path(dev, counter) -> int:
@@ -2472,6 +2483,360 @@ def autotune_sweeps(dev) -> None:
         raise AssertionError("the sweep changed DEFAULTS['cuda']")
 
 
+# ---------------------------------------------------------------------------------
+# phase 10: training on the card
+# ---------------------------------------------------------------------------------
+
+# the tolerances of phase 10a, card against CPU at float32 (f32 sums in other
+# orders than the CPU's): the loss (relative), each gradient leaf (absolute,
+# over the leaf's largest magnitude) and each loss of the 5-step curve (relative)
+REF_LOSS_TOL, REF_GRAD_TOL, REF_CURVE_TOL = 1e-5, 1e-4, 1e-4
+RESUME_TOL = 2e-2               # phase 10b: |loss difference| of the resumed run
+
+
+def train_batches(cfg, n: int, B: int, S: int, seed: int):
+    """``n`` batches of the TokenStream (vocab, S, B, seed) as CPU tensors,
+    with seeded (B, enc_len, d) frame embeddings for the audio family."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, TokenStream
+    data = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed))
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for i in range(n):
+        b = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+        if cfg.family == "audio":
+            b["enc_embeds"] = torch.from_numpy(
+                rng.normal(size=(B, cfg.enc_len, cfg.d_model)).astype(np.float32))
+        out.append(b)
+    return out
+
+
+def no_launch_during(counters, what: str, fn):
+    """``fn()``, failing if any kernel's launch counter moved meanwhile."""
+    before = {c.__name__: c.launches for c in counters}
+    out = fn()
+    moved = {k: c.launches - before[k] for c, k in zip(counters, before)
+             if c.launches != before[k]}
+    if moved:
+        raise AssertionError(f"{what}: kernels launched during a train step: {moved}")
+    return out
+
+
+def train_references(dev, counters) -> None:
+    """Phase 10a: the smoke configs of smollm-135m, mamba2-1.3b and
+    whisper-small at float32 with ``remat="block"``, seeded weights: one
+    ``loss_and_grads`` on the card against the CPU (the loss, every
+    gradient leaf over its largest magnitude), then 5 train steps each
+    (every loss), within ``REF_*_TOL``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training import make_train_step
+    from repro_torch.training.train_step import loss_and_grads
+
+    failures = []
+    for arch in ("smollm-135m", "mamba2-1.3b", "whisper-small"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32, remat="block")
+        params = build_model(cfg, device="cpu").init_params(SEED)
+        batches = train_batches(cfg, 5, 4, 64, SEED + 20)
+        opt = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=5)
+        out = []
+        for where in ("cpu", dev):
+            model = build_model(cfg, device=where)
+            p = to_device(params, where)
+
+            def run():
+                loss, _, g = loss_and_grads(model.loss_fn, p,
+                                            {k: v.to(where) for k, v in batches[0].items()})
+                step = make_train_step(model, opt)
+                q, o, losses = p, adamw_init(p), []
+                for b in batches:
+                    q, o, met = step(q, o, b)
+                    losses.append(float(met["loss"]))
+                return float(loss), {k: t.cpu() for k, t in _flatten(g).items()}, losses
+
+            out.append(no_launch_during(counters, f"10a {arch}", run))
+        (l_cpu, g_cpu, c_cpu), (l_gpu, g_gpu, c_gpu) = out
+        g_err = max(float((g_gpu[k] - r).abs().max()) / max(float(r.abs().max()), 1e-6)
+                    for k, r in g_cpu.items())
+        l_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+        c_err = max(abs(a - b) / abs(b) for a, b in zip(c_gpu, c_cpu))
+        ok = l_err <= REF_LOSS_TOL and g_err <= REF_GRAD_TOL and c_err <= REF_CURVE_TOL
+        log(f"[train ref] {cfg.name} f32: loss card {l_gpu:.6f} cpu {l_cpu:.6f} (rel {l_err:.2e}, "
+            f"tol {REF_LOSS_TOL}); {len(g_cpu)} gradient leaves, worst scaled error {g_err:.2e} "
+            f"(tol {REF_GRAD_TOL}); 5-step curve card {[round(x, 5) for x in c_gpu]} worst rel "
+            f"{c_err:.2e} (tol {REF_CURVE_TOL}): {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failures.append(arch)
+    if failures:
+        raise AssertionError(f"training references failed: {failures}")
+
+
+def step_stats(cfg, B: int, S: int, ms: float) -> str:
+    n = cfg.param_count()
+    tokens = B * S
+    share = 6 * n * tokens / (ms * 1e-3) / BF16_FLOPS_PER_S
+    return (f"{ms:.1f} ms/step, {tokens / (ms * 1e-3):.0f} tokens/s, 6ND share "
+            f"{100 * share:.1f}% of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s (N {n / 1e6:.1f} M)")
+
+
+def step_split(model, params, opt, batch, opt_cfg) -> tuple[float, float]:
+    """Host ms of one train step's gradient pass (``loss_and_grads``) and
+    of its AdamW update (in place), each between two synchronisations."""
+    import torch
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.training.train_step import loss_and_grads
+    batch = {k: v.to(model.device) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = loss_and_grads(model.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(params, grads, opt, opt_cfg, donate=True)
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+def profile_train_step(tag: str, fn, step_ms: float) -> None:
+    """One call of ``fn`` (a train step) under torch.profiler: the kernels
+    launched, the device busy time (summed kernel time) as a share of the
+    unprofiled ``step_ms``, and the kernels that take the most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        log(f"{tag} the profiler reported no device time: not measured")
+        return
+    busy_ms = sum(r[0] for r in rows)
+    log(f"{tag} one profiled step: {sum(r[1] for r in rows)} kernels, device busy "
+        f"{busy_ms:.2f} ms = {100 * busy_ms / step_ms:.1f}% of the {step_ms:.1f} ms "
+        f"unprofiled step")
+    for dev_ms, count, key in sorted(rows, reverse=True)[:10]:
+        log(f"{tag}   {dev_ms:9.3f} ms {100 * dev_ms / busy_ms:5.1f}%  x{count:<6d} {key[:80]}")
+
+
+def train_full(dev, counters, ckpt_dir: str) -> None:
+    """Phase 10b: smollm-135m ``CONFIG`` (bf16, remat "block") trained on
+    the TokenStream at B 8 x S 512 for 30 steps (AdamW, lr 1e-3, cosine
+    over 30, warm-up 5), a train-state checkpoint after step 15; then, in
+    the same process, the state restored from that file and steps 15-29
+    trained again.  Both runs use deterministic index backwards
+    (``torch.use_deterministic_algorithms``), so the resumed run can repeat
+    the first one's bits.  Gates: no kernel launch in any step; every
+    resumed loss within ``RESUME_TOL`` of the uninterrupted run's (whether
+    they are bit-identical is printed); the mean of the last 5 losses below
+    the first 5's.  Prints ms per step (of 7 plain steps after the runs),
+    tokens/s, peak memory, the 6ND share, a step split into its gradient
+    pass and its AdamW update, and one profiled step."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training import make_train_step
+
+    cfg = get_config("smollm-135m")
+    B, S, steps, at = 8, 512, 30, 15
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)                                   # on the GPU
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=steps),
+                           donate=True)
+    batches = train_batches(cfg, steps, B, S, SEED)
+    mgr = CheckpointManager(ckpt_dir, keep=2)
+
+    def run(params, opt, lo):
+        losses, times = [], []
+        for i in range(lo, steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = no_launch_during(counters, "10b",
+                                                lambda: step(params, opt, batches[i]))
+            losses.append(float(met["loss"]))                  # syncs
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i + 1 == at and lo == 0:
+                mgr.save({"params": params, "opt": opt}, step=at)
+        return params, opt, losses, times
+
+    params = model.init_params(SEED)
+    # deterministic index backward (the embedding's gradient) so the resumed
+    # run can repeat the first one's bits; warn_only: cuBLAS keeps its default
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            params, opt, losses, times = run(params, adamw_init(params), 0)
+            mgr.wait()
+            peak_mib = torch.cuda.max_memory_allocated() / 2**20
+            template = {"params": params, "opt": opt}
+            t0 = time.perf_counter()
+            state, meta = mgr.restore_latest(template)
+            restore_s = time.perf_counter() - t0
+            del template, params, opt
+            params, opt, resumed, _ = run(state["params"], state["opt"], at)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    det_ms = float(np.mean(times[3:]))
+    # the speed of a plain step: 8 more steps without the deterministic
+    # index backwards, the first of them not counted
+    plain = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = no_launch_during(counters, "10b", lambda: step(params, opt, batches[i]))
+        float(met["loss"])
+        plain.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.mean(plain[1:]))
+    diffs = [abs(a - b) for a, b in zip(resumed, losses[at:])]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    ok = meta.get("step") == at and max(diffs) <= RESUME_TOL and last5 < first5
+    log(f"[train] {cfg.name} bf16 B {B} x S {S}, {steps} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (mean of first 5 {first5:.4f}, last 5 {last5:.4f}); "
+        f"{step_stats(cfg, B, S, ms)} (7 steps after the run; with the deterministic "
+        f"index backwards {det_ms:.1f} ms, steps 3-29; first step {times[0]:.0f} ms); "
+        f"peak memory {peak_mib:.0f} MiB")
+    log(f"[train] resumed from the step-{at} checkpoint (restore {restore_s:.1f} s): "
+        f"steps {at}-{steps - 1} losses {[round(x, 4) for x in resumed]}; first equal "
+        f"{resumed[0] == losses[at]}, max |difference| {max(diffs):.2e} (tol {RESUME_TOL}), "
+        f"bit-identical {diffs == [0.0] * len(diffs)}: {'ok' if ok else 'FAILED'}")
+    # where a step's time goes, outside the gated runs and without the
+    # deterministic index backwards
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=steps)
+    split = [step_split(model, params, opt, batches[i], opt_cfg) for i in range(3)]
+    grad_ms, opt_ms = (float(np.median([x[j] for x in split])) for j in (0, 1))
+    log(f"[train] {cfg.name} a step split: gradient pass {grad_ms:.1f} ms, AdamW update "
+        f"{opt_ms:.1f} ms ({len(_leaves(params))} leaves)")
+    profile_train_step("[train profile]", lambda: step(params, opt, batches[0]),
+                       grad_ms + opt_ms)
+    if not ok:
+        raise AssertionError("smollm-135m training failed: the loss did not fall, or the "
+                             "resumed run did not repeat the uninterrupted one")
+
+
+def train_wide(dev, counters) -> None:
+    """Phase 10c: qwen2.5-3b ``CONFIG`` (bf16) for 3 steps at B 4 x S 512
+    and mamba2-1.3b ``CONFIG`` for 2 steps at B 2 x S 512, parameters and
+    optimizer state updated in place; finite losses, no kernel launch.
+    Prints ms per step (the steps after the first), peak memory, the 6ND
+    share, and one more step split into its gradient pass and its AdamW
+    update."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training import make_train_step
+
+    for arch, B, S, n in (("qwen2.5-3b", 4, 512, 3), ("mamba2-1.3b", 2, 512, 2)):
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg)                               # on the GPU
+        # the training CLI's schedule: lr 1e-3 after a 5-step warm-up
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=n),
+                               donate=True)
+        params = model.init_params(SEED)
+        opt = adamw_init(params)
+        losses, times = [], []
+        for b in train_batches(cfg, n, B, S, SEED + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = no_launch_during(counters, f"10c {arch}",
+                                                lambda: step(params, opt, b))
+            losses.append(float(met["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        ms = sum(times[1:]) / len(times[1:])
+        grad_ms, opt_ms = step_split(model, params, opt, b,
+                                     AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=n))
+        log(f"[train wide] {cfg.name} bf16 B {B} x S {S}, {n} steps: losses "
+            f"{[round(x, 4) for x in losses]}; {step_stats(cfg, B, S, ms)} (first step "
+            f"{times[0]:.0f} ms); peak memory {peak_mib:.0f} MiB; one more step split: "
+            f"gradient pass {grad_ms:.1f} ms, AdamW update {opt_ms:.1f} ms")
+        del params, opt, step, model
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{arch}: non-finite training loss {losses}")
+
+
+def whisper_full(dev, counters) -> None:
+    """Phase 10d: whisper-small ``CONFIG`` (bf16) at model level: ``prefill``
+    from (2, 1500, 768) seeded frame embeddings and a 32-token prompt, 16
+    ``decode_step``s at one scalar position, then one train step at B 2 x
+    S 32 against the same audio.  Finite logits and loss, no kernel launch
+    (whisper has none).  Prints ms per decode step and peak memory."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training import make_train_step
+
+    cfg = get_config("whisper-small")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)                                   # on the GPU
+    params = model.init_params(SEED)
+    rng = np.random.default_rng(SEED + 30)
+    B, P, n_dec = 2, 32, 16
+    enc = torch.from_numpy(rng.normal(size=(B, cfg.enc_len, cfg.d_model)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P)).astype(np.int32))
+
+    def serve():
+        logits, cache = model.prefill(params, {"enc_embeds": enc.to(dev),
+                                               "tokens": tokens.to(dev)}, max_len=P + n_dec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [logits[:, 0].argmax(-1)]
+        finite = bool(torch.isfinite(logits).all())
+        for i in range(n_dec):
+            logits, cache = model.decode_step(params, cache, out[-1][:, None], P + i)
+            out.append(logits[:, 0].argmax(-1))
+        torch.cuda.synchronize()
+        finite = finite and bool(torch.isfinite(logits).all())
+        return (time.perf_counter() - t0) * 1e3 / n_dec, finite, torch.stack(out, 1)
+
+    no_launch_during(counters, "10d serve", serve)                # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec_ms, finite, out = no_launch_during(counters, "10d serve", serve)
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=1),
+                           donate=True)
+    batch = {"enc_embeds": enc, "tokens": tokens, "targets": tokens}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _, met = no_launch_during(counters, "10d train",
+                                      lambda: step(params, adamw_init(params), batch))
+    loss = float(met["loss"])
+    train_ms = (time.perf_counter() - t0) * 1e3
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[whisper] {cfg.name} bf16 ({cfg.n_enc_layers}+{cfg.n_layers} layers, d "
+        f"{cfg.d_model}): prefill of {B} x {cfg.enc_len} frames + {P} tokens and {n_dec} "
+        f"decode steps in {serve_ms:.1f} ms, {dec_ms:.2f} ms per decode step; tokens "
+        f"{out[0].tolist()}; logits finite {finite}; one train step (B {B} x S {P}) "
+        f"{train_ms:.0f} ms, loss {loss:.4f}; peak memory {peak_mib:.0f} MiB")
+    if not (finite and math.isfinite(loss)):
+        raise AssertionError("whisper-small: non-finite logits or loss")
+
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2567,6 +2932,19 @@ def main() -> int:
     families = family_paths(dev, counters + bucketed_counters[:2])
     autotune_sweeps(dev)
     log(f"[families] phases 9a-9d in {time.perf_counter() - t0:.1f} s")
+
+    # training on the card: references, smollm-135m, qwen2.5-3b, mamba2-1.3b,
+    # whisper-small
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    all_counters = (flash_attention_dyn, decode_attention_mixed, decode_attention_paged,
+                    decode_attention, greedy_epilogue, fused_lmhead_greedy, ssd_intra)
+    train_references(dev, all_counters)
+    with tempfile.TemporaryDirectory(prefix="train-") as tmp:
+        train_full(dev, all_counters, tmp)
+    train_wide(dev, all_counters)
+    whisper_full(dev, all_counters)
+    log(f"[train] phases 10a-10d in {time.perf_counter() - t0:.1f} s")
 
     log(f"[done] greedy_epilogue launches: {launches['greedy_epilogue']} in phase 5b, "
         f"{ssm_launches['greedy_epilogue']} in phase 5c")

@@ -9,8 +9,11 @@ under the key plus ``__bf16__``.  Beside it go a ``.meta.json`` sidecar and,
 last, the ``.ok`` marker (:data:`OK_SUFFIX`): a file without it was torn
 mid-save and is never restored.  This module reads and writes that format
 with numpy and torch alone (no ``ml_dtypes``), so each package reads the
-other's files bit for bit, and maps the tree onto the port's parameters
-(:mod:`repro_torch.models.lm`, :mod:`repro_torch.models.mamba_lm`).
+other's files bit for bit, and maps the tree onto the port's trees: a
+model's parameters (:mod:`repro_torch.models.lm`,
+:mod:`repro_torch.models.mamba_lm`, :mod:`repro_torch.models.whisper`) or a
+whole train state (``{"params": ..., "opt": {"m", "v", "step"}}``,
+:mod:`repro_torch.launch.train`), with the JAX package's keys.
 ``restore_resharded`` has no counterpart yet: the port has no sharding
 (ROADMAP.md Queue 1 item 8).
 """
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.registry import resolve_device
+from repro_torch.pytree import tree_map
 
 SEP = "/"
 _BF16 = "__bf16__"
@@ -63,6 +67,11 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
 F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "router"})
 
 
+#: the keys whose value is a list of per-layer dictionaries in the port and
+#: one dictionary of layer-stacked leaves in the JAX tree, at any depth
+STACKED = frozenset({"blocks", "enc_blocks", "dec_blocks"})
+
+
 def _nest(tree: dict, key: str, value) -> None:
     *outer, leaf = key.split("/")
     for name in outer:
@@ -70,55 +79,65 @@ def _nest(tree: dict, key: str, value) -> None:
     tree[leaf] = value
 
 
+def _unstack(tree: dict) -> dict:
+    """The nested dictionary of a JAX tree with every :data:`STACKED` entry
+    split on its leading layer dim into a list of per-layer dictionaries."""
+    out = {}
+    for key, value in tree.items():
+        if not isinstance(value, dict):
+            out[key] = value
+        elif key in STACKED:
+            leaves = _flatten(value)
+            n_layers = {t.shape[0] for t in leaves.values()}
+            if len(n_layers) > 1:
+                raise ValueError(f"{key} leaves disagree on the layer count: {n_layers}")
+            layers = []
+            for layer in range(n_layers.pop() if n_layers else 0):
+                lp: dict = {}
+                for path, t in leaves.items():
+                    _nest(lp, path, t[layer].contiguous())
+                layers.append(lp)
+            out[key] = layers
+        else:
+            out[key] = _unstack(value)
+    return out
+
+
 def params_from_jax(flat, *, device=None, dtype=None) -> dict:
-    """Map a flattened JAX parameter tree onto the port's parameters.
+    """Map a flattened JAX tree onto the port's tree.
 
     ``flat``: {tree path: numpy array or tensor}, e.g. from
     :func:`load_jax_npz`.  Every ``/``-separated path becomes nested
     dictionaries (``shared_attn/mlp/w_gate`` ->
-    ``params["shared_attn"]["mlp"]["w_gate"]``); ``blocks/...`` leaves have
-    a leading layer dim that is split into the per-layer dictionaries of
-    ``params["blocks"]``.  ``dtype``, if given, casts every floating leaf
-    except those the JAX package keeps in float32 (:data:`F32_LEAVES`).
+    ``params["shared_attn"]["mlp"]["w_gate"]``); the leaves under a
+    :data:`STACKED` key (``blocks/...``, whisper's ``enc_blocks/...`` and
+    ``dec_blocks/...``, at any depth, e.g. ``opt/m/blocks/wq`` of a train
+    state) have a leading layer dim that is split into a list of per-layer
+    dictionaries.  ``dtype``, if given, casts every floating leaf except
+    those the JAX package keeps in float32 (:data:`F32_LEAVES`).
     ``device``: where the leaves go, the GPU unless the caller passes
     ``device="cpu"`` (:func:`repro_torch.models.registry.resolve_device`).
     """
     device = resolve_device(device)
-
-    def tensor(key, a):
+    tree: dict = {}
+    for key, a in flat.items():
         t = _from_numpy(a) if isinstance(a, np.ndarray) else a
         if (dtype is not None and t.is_floating_point()
                 and key.rsplit("/", 1)[-1] not in F32_LEAVES):
             t = t.to(dtype)
-        return t.to(device)
-
-    params: dict = {}
-    blocks: dict[str, torch.Tensor] = {}
-    for key, a in flat.items():
-        if key.startswith("blocks/"):
-            blocks[key[len("blocks/"):]] = tensor(key, a)
-        else:
-            _nest(params, key, tensor(key, a))
-    n_layers = {t.shape[0] for t in blocks.values()}
-    if len(n_layers) > 1:
-        raise ValueError(f"block leaves disagree on the layer count: {n_layers}")
-    params["blocks"] = []
-    for layer in range(n_layers.pop() if n_layers else 0):
-        bp: dict = {}
-        for key, t in blocks.items():
-            _nest(bp, key, t[layer].contiguous())
-        params["blocks"].append(bp)
-    return params
+        _nest(tree, key, t.to(device))
+    return _unstack(tree)
 
 
-def _flatten(params, prefix: str = "") -> dict[str, torch.Tensor]:
-    """The flat {tree path: tensor} view of a port parameter tree, the
-    per-layer ``blocks`` dictionaries stacked back on a leading layer dim
-    (the inverse of :func:`params_from_jax`)."""
+def _flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """The flat {tree path: tensor} view of a port tree, with the JAX
+    package's keys: every :data:`STACKED` list of per-layer dictionaries is
+    stacked back on a leading layer dim (the inverse of
+    :func:`params_from_jax`)."""
     flat = {}
-    for key, value in params.items():
+    for key, value in tree.items():
         path = prefix + key
-        if key == "blocks" and not prefix:
+        if key in STACKED and isinstance(value, list):
             layers = [_flatten(layer) for layer in value]
             for leaf in (layers[0] if layers else {}):
                 flat[path + SEP + leaf] = torch.stack([layer[leaf] for layer in layers])
@@ -136,16 +155,19 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def save_checkpoint(path: str, params, *, step: int = 0, extra: dict | None = None):
-    """Write ``params`` (a port parameter tree) as one ``.npz`` in the JAX
-    package's format: block leaves stacked on a leading layer dim, bf16
+def save_checkpoint(path: str, tree, *, step: int = 0, extra: dict | None = None):
+    """Write ``tree`` (a port parameter tree, or any nested dictionary of
+    tensors such as the train state ``{"params": ..., "opt": {"m", "v",
+    "step"}}``) as one ``.npz`` in the JAX package's format: the keys of
+    JAX's ``_flatten`` (``blocks/wq``, ``opt/v/dec_blocks/xq``,
+    ``opt/step``), block leaves stacked on a leading layer dim, bf16
     leaves as their uint16 bit pattern under ``key + "__bf16__"``.  The
     file goes through a temp file and ``os.replace``, then the
     ``.meta.json`` sidecar, then the ``.ok`` marker last.  Returns ``path``."""
     directory = os.path.dirname(path) or "."
     os.makedirs(directory, exist_ok=True)
     flat = {}
-    for key, t in _flatten(params).items():
+    for key, t in _flatten(tree).items():
         flat[key + _BF16 if t.dtype == torch.bfloat16 else key] = _to_numpy(t)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".npz")
     os.close(fd)
@@ -159,27 +181,38 @@ def save_checkpoint(path: str, params, *, step: int = 0, extra: dict | None = No
     return path
 
 
-def load_checkpoint(path: str, *, device=None, dtype=None, expected=None):
-    """Read a checkpoint written by either package: ``(params, meta)``.
+def load_checkpoint(path: str, template=None, *, device=None, dtype=None):
+    """Read a checkpoint written by either package: ``(tree, meta)``.
 
-    ``device`` and ``dtype`` as in :func:`params_from_jax` (the GPU unless
-    the caller passes ``device="cpu"``).  ``expected``, if given, is a port
-    parameter tree: a leaf whose shape differs from it, or that the file
-    lacks, raises ValueError, as the JAX loader does against its template.
+    Without ``template`` the file's whole tree comes back as
+    :func:`params_from_jax` maps it (``device`` and ``dtype`` as there: the
+    GPU unless the caller passes ``device="cpu"``).  With ``template``, a
+    port tree (tensors, or the meta tensors of ``Model.abstract_params``),
+    the result has the template's structure and each leaf takes its
+    template leaf's dtype, as JAX's ``load_checkpoint(path, template)``
+    does (so a train state's float32 ``m``/``v`` and int32 ``step`` keep
+    theirs at any parameter dtype); a leaf the file lacks, or whose shape
+    differs, raises ValueError.  ``dtype`` is then refused.
     """
     flat = load_jax_npz(path)
-    if expected is not None:
-        for key, leaf in _flatten(expected).items():
-            if key not in flat:
-                raise ValueError(f"checkpoint {path} has no leaf {key}")
-            if tuple(flat[key].shape) != tuple(leaf.shape):
-                raise ValueError(f"shape mismatch for {key}: ckpt "
-                                 f"{tuple(flat[key].shape)} vs model {tuple(leaf.shape)}")
     meta = {}
     if os.path.exists(path + ".meta.json"):
         with open(path + ".meta.json") as f:
             meta = json.load(f)
-    return params_from_jax(flat, device=device, dtype=dtype), meta
+    if template is None:
+        return params_from_jax(flat, device=device, dtype=dtype), meta
+    if dtype is not None:
+        raise ValueError("load_checkpoint: a template sets each leaf's dtype; pass no dtype")
+    device = resolve_device(device)
+    out = {}
+    for key, leaf in _flatten(template).items():
+        if key not in flat:
+            raise ValueError(f"checkpoint {path} has no leaf {key}")
+        if tuple(flat[key].shape) != tuple(leaf.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt "
+                             f"{tuple(flat[key].shape)} vs model {tuple(leaf.shape)}")
+        out[key] = flat[key].to(device, leaf.dtype)
+    return params_from_jax(out, device=device), meta
 
 
 class CheckpointManager:
@@ -209,10 +242,11 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def save(self, params, step: int, extra: dict | None = None):
-        # copy to host tensors BEFORE returning control, so the caller may
-        # mutate its parameters in place; the file write runs on a thread
-        host = _map(params, lambda t: t.detach().to("cpu", copy=True))
+    def save(self, tree, step: int, extra: dict | None = None):
+        """Write ``tree`` (parameters, or a whole train state) as step
+        ``step``: copied to host tensors BEFORE returning control, so the
+        caller may update it in place; the file write runs on a thread."""
+        host = tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
         self.wait()
 
         def _write():
@@ -235,21 +269,14 @@ class CheckpointManager:
                 except OSError:
                     pass
 
-    def restore_latest(self, *, device=None, dtype=None):
-        """``(params, meta)`` of :meth:`latest`, or ``(None, {})``."""
+    def restore_latest(self, template=None, *, device=None, dtype=None):
+        """``(tree, meta)`` of :meth:`latest` through :func:`load_checkpoint`,
+        or ``(None, {})``."""
         path = self.latest()
         if path is None:
             return None, {}
-        return load_checkpoint(path, device=device, dtype=dtype)
+        return load_checkpoint(path, template, device=device, dtype=dtype)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
-
-
-__all__ = ["F32_LEAVES", "OK_SUFFIX", "CheckpointManager", "load_checkpoint",
+__all__ = ["F32_LEAVES", "OK_SUFFIX", "STACKED", "CheckpointManager", "load_checkpoint",
            "load_jax_npz", "params_from_jax", "save_checkpoint"]

@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import request_stream
+from repro_torch.data.pipeline import DataConfig, TokenStream, request_stream
 
-__all__ = ["request_stream"]
+__all__ = ["DataConfig", "TokenStream", "request_stream"]

@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.models.attention import NEG_INF, sdpa
 from repro_torch.serving.kvcache import _span_mask, _vector_mask, paged_gather
 
@@ -258,6 +258,7 @@ def decode_attention_mixed(q, k_pages, v_pages, block_table, starts, *,
         return paged_mixed_attention_plain(q, k_pages, v_pages, block_table,
                                            starts, window=window,
                                            k_scale=k_scale, v_scale=v_scale)
+    refuse_grad("decode_attention_mixed", q, k_pages, v_pages, k_scale, v_scale)
     B, T, Hq, D = q.shape
     ps, Hkv = k_pages.shape[1], k_pages.shape[2]
     int8 = k_scale is not None
@@ -322,6 +323,7 @@ def decode_attention_paged(q1, k_pages, v_pages, block_table, lengths, *,
         return paged_decode_attention_plain(q1, k_pages, v_pages, block_table,
                                             lengths, window=window,
                                             k_scale=k_scale, v_scale=v_scale)
+    refuse_grad("decode_attention_paged", q1, k_pages, v_pages, k_scale, v_scale)
     if q1.dim() != 4 or q1.shape[1] != 1:
         raise ValueError(f"decode_attention_paged: q1 {tuple(q1.shape)} is not (B, 1, Hq, D)")
     B, _, Hq, D = q1.shape
@@ -472,6 +474,7 @@ def decode_attention(q1, k_cache, v_cache, pos, *, window: int | None = None,
     pos = int(pos)
     if not q1.is_cuda:
         return decode_attention_plain(q1, k_cache, v_cache, pos, window=window)
+    refuse_grad("decode_attention", q1, k_cache, v_cache)
     if q1.dim() != 4 or q1.shape[1] != 1:
         raise ValueError(f"decode_attention: q1 {tuple(q1.shape)} is not (B, 1, Hq, D)")
     B, _, Hq, D = q1.shape

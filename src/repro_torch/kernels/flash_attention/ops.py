@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.models.attention import attention_mask, sdpa
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,6 +61,7 @@ def flash_attention_dyn(q, k, v, window):
     window = int(window)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, window)
+    refuse_grad("flash_attention", q, k, v)
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     if k.device != q.device or v.device != q.device:

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.models.attention import NEG_INF
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -190,6 +190,7 @@ def greedy_epilogue(logits):
     """
     if not logits.is_cuda:
         return greedy_epilogue_plain(logits)
+    refuse_grad("greedy_epilogue", logits)
     if logits.dtype not in _DTYPE_CODE or logits.dim() != 2:
         raise TypeError(f"greedy_epilogue: logits must be (B, V) float32 or bfloat16, got "
                         f"{tuple(logits.shape)} {logits.dtype}")
@@ -250,6 +251,7 @@ def fused_lmhead_greedy(h, w):
     """
     if not h.is_cuda:
         return lmhead_greedy_plain(h, w)
+    refuse_grad("fused_lmhead_greedy", h, w)
     lead = h.shape[:-1]
     d = h.shape[-1]
     if w.device != h.device:

@@ -24,19 +24,27 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
+
+
+def _decay(acs):
+    """L[b, c, t, u, h] = exp(acs_t - acs_u) for t >= u, else 0: acs
+    (b, nc, q, h) -> (b, nc, q, q, h).  Above the diagonal exp(diff) may
+    overflow to inf, so the value is selected, not multiplied by a mask;
+    and the exponent is selected before the exp too, so the gradient there
+    is 0, where the JAX package's ``where(tri, exp(diff), 0)`` gives
+    0 * inf = NaN.  The values are the same bits."""
+    q = acs.shape[2]
+    diff = acs[:, :, :, None, :] - acs[:, :, None, :, :]        # (b, nc, t, u, h)
+    tri = torch.ones((q, q), dtype=torch.bool, device=acs.device).tril()[None, None, :, :, None]
+    return torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
 
 
 def ssd_intra_plain(xb, acs, Bh, Ch):
     """Model layout: xb (b, nc, q, h, p); acs (b, nc, q, h); Bh/Ch
     (b, nc, q, h, n), all float32 -> y_intra (b, nc, q, h, p) float32."""
-    q = xb.shape[2]
-    diff = acs[:, :, :, None, :] - acs[:, :, None, :, :]        # (b, nc, t, u, h)
-    tri = torch.ones((q, q), dtype=torch.bool, device=xb.device).tril()
-    # select, don't multiply: above the diagonal exp(diff) may overflow to inf
-    L = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
     scores = torch.einsum("bcthn,bcuhn->bctuh", Ch, Bh)
-    return torch.einsum("bctuh,bcuhp->bcthp", scores * L, xb.float())
+    return torch.einsum("bctuh,bcuhp->bcthp", scores * _decay(acs), xb.float())
 
 
 def ssd_intra_grouped_plain(xb, acs, Bg, Cg):
@@ -49,10 +57,7 @@ def ssd_intra_grouped_plain(xb, acs, Bg, Cg):
     b, nc, q, h, p = xb.shape
     G = Bg.shape[3]
     scores = torch.einsum("bctgn,bcugn->bcgtu", Cg, Bg)          # once per group
-    diff = acs[:, :, :, None, :] - acs[:, :, None, :, :]        # (b, nc, t, u, h)
-    tri = torch.ones((q, q), dtype=torch.bool, device=xb.device).tril()
-    L = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
-    P = scores.repeat_interleave(h // G, dim=2) * L.permute(0, 1, 4, 2, 3)
+    P = scores.repeat_interleave(h // G, dim=2) * _decay(acs).permute(0, 1, 4, 2, 3)
     return torch.einsum("bchtu,bcuhp->bcthp", P, xb.float())
 
 
@@ -101,6 +106,7 @@ def ssd_intra(xb, acs, Bh, Ch):
     Returns a contiguous y_intra (b, nc, q, h, p) float32."""
     if not xb.is_cuda:
         return ssd_intra_plain(xb, acs, Bh, Ch)
+    refuse_grad("ssd_intra", xb, acs, Bh, Ch)
     b, nc, q, h, p = xb.shape
     n = Bh.shape[-1]
     tensors = (xb, acs, Bh, Ch)

@@ -21,6 +21,10 @@ plain matmul (the JAX package leaves it to XLA).  Over the dense cache of
 ``ServeConfig(paged=False)`` (``block_table=None``) decode attention is the
 masked sdpa, as in the JAX package.  On the CPU every wrapper runs its
 plain version.
+
+:func:`loss_fn` is the training path: :func:`forward` with
+``use_kernel=False`` (the JAX package trains with its kernels off too),
+each block under :func:`_remat`, on the card and on the CPU alike.
 """
 from __future__ import annotations
 
@@ -31,11 +35,13 @@ from repro_torch.kernels.decode_attention.ops import (
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention_dyn
 from repro_torch.kernels.sampling.ops import fused_lmhead_greedy
-from repro_torch.models.attention import NEG_INF, sdpa
+from repro_torch.models.attention import NEG_INF, attention_mask, sdpa
 from repro_torch.models.common import (
-    ModelConfig, apply_rope, gated_mlp, init_dense, rms_norm, rope_tables,
+    ModelConfig, apply_rope, gated_mlp, generator, init_dense, lm_loss, rms_norm,
+    rope_tables,
 )
 from repro_torch.models.moe import moe_ffn
+from repro_torch.pytree import tree_leaves
 from repro_torch.serving import kvcache
 
 STREAM_THRESHOLD = 4096
@@ -84,8 +90,9 @@ def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def init_params(seed: int, cfg: ModelConfig, device) -> dict:
     """Random weights drawn from ``torch.Generator(device).manual_seed(seed)``
     with the JAX package's std rule (its draws differ: hold the two packages
-    against each other with :func:`repro_torch.checkpoint.params_from_jax`)."""
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    against each other with :func:`repro_torch.checkpoint.params_from_jax`).
+    On the meta device: shapes and dtypes only (``Model.abstract_params``)."""
+    gen = generator(seed, device)
     params = {
         "embed": init_dense(gen, (cfg.vocab, cfg.d_model), cfg.dtype, scale=0.02),
         "blocks": [init_block_params(gen, cfg) for _ in range(cfg.n_layers)],
@@ -177,24 +184,36 @@ def _stream_attention(q, k, v, window: int):
     return torch.cat(outs, dim=1)
 
 
-def _prefill_attention(q, k, v, window: int):
-    """Causal (+ window) attention over a full sequence: the flash kernel on
-    the card; on the CPU its plain version, or the streaming route above
-    ``STREAM_THRESHOLD`` as in the JAX package."""
+def _prefill_attention(q, k, v, window: int, use_kernel: bool = True):
+    """Causal (+ window) attention over a full sequence.
+
+    ``use_kernel`` (serving, the greedy oracles): the flash kernel on the
+    card; on the CPU its plain version, or the streaming route above
+    ``STREAM_THRESHOLD`` as in the JAX package.  Without it (training): the
+    JAX ``use_kernel=False`` branch on either device, the masked sdpa up to
+    ``STREAM_THRESHOLD`` and the streaming route above it; autograd runs
+    through both."""
     S = q.shape[1]
-    if not q.is_cuda and S > STREAM_THRESHOLD and S % STREAM_CHUNK == 0:
+    stream = S > STREAM_THRESHOLD and S % STREAM_CHUNK == 0
+    if use_kernel and (q.is_cuda or not stream):
+        return flash_attention_dyn(q, k, v, window)
+    if stream:
         return _stream_attention(q, k, v, window)
-    return flash_attention_dyn(q, k, v, window)
+    mask = attention_mask(S, S, causal=True, window=window if window > 0 else None,
+                          device=q.device)
+    return sdpa(q, k, v, mask)
 
 
-def block_forward(x, bp, window: int, cos, sin, cfg: ModelConfig, *, aux: bool = False):
+def block_forward(x, bp, window: int, cos, sin, cfg: ModelConfig, *, aux: bool = False,
+                  use_kernel: bool = True):
     """Full-sequence block: x (B, S, d) -> (x, (k, v), aux), k/v after RoPE;
-    the MoE load-balance loss only with ``aux`` (else 0.0)."""
+    the MoE load-balance loss only with ``aux`` (else 0.0); ``use_kernel``
+    as in :func:`_prefill_attention`."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(h, bp, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = _prefill_attention(q, k, v, window)
+    o = _prefill_attention(q, k, v, window, use_kernel)
     x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     f, loss = _ffn(h, bp, cfg, aux=aux)
@@ -304,27 +323,93 @@ def _embed_in(params, batch, cfg: ModelConfig):
     return params["embed"][batch["tokens"].long()]
 
 
-def _run_blocks(params, x, cfg: ModelConfig, *, aux: bool = False):
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``, the JAX ``_remat``: ``"none"`` keeps every
+    activation for the backward; ``"block"`` keeps only ``fn``'s inputs and
+    recomputes the rest in the backward (``jax.checkpoint``); ``"dots"``
+    keeps the matmul outputs and recomputes the rest (the JAX policy
+    ``checkpoint_dots_with_no_batch_dims``).  Only where autograd records
+    (grad mode on and an argument's tensor requires grad): serving and the
+    oracles run ``fn`` as it is."""
+    if cfg.remat == "none":
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    def wrapped(*args):
+        if not (torch.is_grad_enabled()
+                and any(torch.is_tensor(t) and t.requires_grad for t in tree_leaves(args))):
+            return fn(*args)
+        if cfg.remat == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=_save_matmuls_context)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped
+
+
+# the products with no batch dim (``x @ w`` reaches aten as ``mm``), the ones
+# ``checkpoint_dots_with_no_batch_dims`` saves; the batched attention and
+# expert products (``bmm``) are recomputed, as there
+_MATMULS = frozenset({"mm", "addmm"})
+
+
+def _save_matmuls_context():
+    """Selective checkpointing's contexts for ``remat="dots"``: the outputs
+    of :data:`_MATMULS` are saved for the backward, every other op is
+    recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    def policy(ctx, op, *args, **kwargs):
+        if getattr(op, "_opname", None) in _MATMULS:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _run_blocks(params, x, cfg: ModelConfig, *, aux: bool = False, use_kernel: bool = True,
+                remat: bool = False):
     """Run every block over the embedded input x (B, S, d) -> (x after ln_f,
-    per-layer [(k, v)], summed aux loss: 0.0 unless ``aux``)."""
+    per-layer [(k, v)], summed aux loss: 0.0 unless ``aux``); each block
+    under :func:`_remat` with ``remat``."""
     S = x.shape[1]
     cos, sin = rope_tables(torch.arange(S, device=x.device),
                            cfg.resolved_head_dim, cfg.rope_theta)
+
+    def body(x, bp, w):
+        return block_forward(x, bp, w, cos, sin, cfg, aux=aux, use_kernel=use_kernel)
+
+    if remat:
+        body = _remat(body, cfg)
     kvs = []
     total = 0.0
     for bp, w in zip(params["blocks"], layer_windows(cfg)):
-        x, kv, a = block_forward(x, bp, w, cos, sin, cfg, aux=aux)
+        x, kv, a = body(x, bp, w)
         kvs.append(kv)
         total = total + a
     return rms_norm(x, params["ln_f"], cfg.norm_eps), kvs, total
 
 
-def forward(params, batch, cfg: ModelConfig):
+def forward(params, batch, cfg: ModelConfig, *, use_kernel: bool = True):
     """Full-sequence forward -> (logits (B, S, V) f32, aux): the MoE layers'
-    summed load-balance loss (0.0 without MoE).  The greedy oracle of the
-    tests; on the card its attention is the flash kernel."""
-    x, _, aux = _run_blocks(params, _embed_in(params, batch, cfg), cfg, aux=True)
+    summed load-balance loss (0.0 without MoE).  Each block runs under
+    :func:`_remat`.  ``use_kernel`` (the default: the greedy oracle of the
+    tests and the serving checks) takes the flash kernel on the card;
+    :func:`loss_fn` passes False (:func:`_prefill_attention`)."""
+    x, _, aux = _run_blocks(params, _embed_in(params, batch, cfg), cfg, aux=True,
+                            use_kernel=use_kernel, remat=True)
     return _lm_head(params, x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """``(loss, metrics)`` of the JAX ``loss_fn``: the next-token
+    cross-entropy of :func:`~repro_torch.models.common.lm_loss` over
+    ``batch["targets"]`` plus 0.01 times the MoE load-balance loss, through
+    :func:`forward` without the kernels (autograd runs through it on either
+    device).  metrics: ``{"ce", "aux"}``."""
+    logits, aux = forward(params, batch, cfg, use_kernel=False)
+    ce = lm_loss(logits, batch["targets"])
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
@@ -436,6 +521,6 @@ def verify_step(params, cache, tokens, pos, cfg: ModelConfig, *, block_table):
     return tok, lp, cache
 
 
-__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step",
+__all__ = ["init_params", "init_cache", "forward", "loss_fn", "prefill", "decode_step",
            "verify_step", "layer_windows", "block_forward", "block_decode",
            "block_verify"]

@@ -13,7 +13,9 @@ Prefill runs each layer's SSD intra-chunk term through
 attention through the flash-attention wrapper: the CUDA kernels on the
 card, their plain versions on the CPU.  Decode is the plain recurrence, and
 the hybrid's decode attention the plain masked sdpa over its dense cache,
-as in the JAX package.
+as in the JAX package.  :func:`loss_fn` trains through
+``forward(..., use_kernel=False)``: the plain SSD and attention on either
+device, each Mamba-2 layer under ``lm._remat``.
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ import torch
 
 from repro_torch.models.attention import sdpa
 from repro_torch.models.common import (
-    ModelConfig, apply_rope, gated_mlp, init_dense, rms_norm, rope_tables,
+    ModelConfig, apply_rope, gated_mlp, generator, init_dense, lm_loss, rms_norm,
+    rope_tables,
 )
 from repro_torch.models.lm import (
-    _lm_head, _prefill_attention, _project_qkv, init_block_params,
+    _lm_head, _prefill_attention, _project_qkv, _remat, init_block_params,
 )
 from repro_torch.models.ssm import mamba2_block
 from repro_torch.serving import kvcache
@@ -63,8 +66,9 @@ def init_mamba_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def init_params(seed: int, cfg: ModelConfig, device) -> dict:
     """Random weights drawn from ``torch.Generator(device).manual_seed(seed)``
     with the JAX package's std rule (its draws differ: hold the two packages
-    against each other with :func:`repro_torch.checkpoint.params_from_jax`)."""
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    against each other with :func:`repro_torch.checkpoint.params_from_jax`).
+    On the meta device: shapes and dtypes only (``Model.abstract_params``)."""
+    gen = generator(seed, device)
     params = {
         "embed": init_dense(gen, (cfg.vocab, cfg.d_model), cfg.dtype, scale=0.02),
         "blocks": [init_mamba_layer(gen, cfg) for _ in range(cfg.n_layers)],
@@ -92,39 +96,49 @@ def _n_attn_calls(cfg: ModelConfig) -> int:
 # forward (prefill)
 # ---------------------------------------------------------------------------------
 
-def _shared_attn_forward(x, params, cos, sin, cfg: ModelConfig):
+def _shared_attn_forward(x, params, cos, sin, cfg: ModelConfig, use_kernel: bool):
     bp = params["shared_attn"]
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(h, bp, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = _prefill_attention(q, k, v, -1)
+    o = _prefill_attention(q, k, v, -1, use_kernel)
     x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     f = gated_mlp(h, bp["mlp"]["w_gate"], bp["mlp"]["w_up"], bp["mlp"]["w_down"])
     return x + f, (k, v)
 
 
-def forward(params, batch, cfg: ModelConfig, *, collect_cache: bool = False):
+def forward(params, batch, cfg: ModelConfig, *, use_kernel: bool = True,
+            collect_cache: bool = False):
     """Full-sequence forward -> (logits (B, S, V) f32, 0.0), or with
     ``collect_cache`` (logits, cache): ``ssm`` (L, B, h, p, n) f32 final
     states, ``conv`` (L, B, w, C) last pre-conv inputs and, for the hybrid,
-    ``attn_k``/``attn_v`` (calls, B, S, Hkv, hd) after RoPE."""
+    ``attn_k``/``attn_v`` (calls, B, S, Hkv, hd) after RoPE.  Each Mamba-2
+    layer runs under ``lm._remat``.  ``use_kernel`` (the default, serving)
+    takes the SSD and flash kernels on the card; :func:`loss_fn` passes
+    False, the plain SSD (``ssd_chunked(use_kernel=False)``) and the JAX
+    non-kernel attention."""
     x = params["embed"][batch["tokens"].long()]
     S = x.shape[1]
     cos = sin = None
     if cfg.shared_attn_every:
         cos, sin = rope_tables(torch.arange(S, device=x.device),
                                cfg.resolved_head_dim, cfg.rope_theta)
+
+    def mamba_body(x, bp):
+        y, st, cv = mamba2_block(rms_norm(x, bp["ln"], cfg.norm_eps), bp, cfg.ssm,
+                                 use_kernel=use_kernel)
+        return x + y, st, cv
+
+    mamba_body = _remat(mamba_body, cfg)
     sts, cvs, attn_kv = [], [], []
     for layer, bp in enumerate(params["blocks"]):
-        y, st, cv = mamba2_block(rms_norm(x, bp["ln"], cfg.norm_eps), bp, cfg.ssm,
-                                 use_kernel=True)
-        x = x + y
+        x, st, cv = mamba_body(x, bp)
         sts.append(st)
         cvs.append(cv)
         if _attn_after(cfg, layer):
-            x, kv = _shared_attn_forward(x, params, cos, sin, cfg)
+            x, kv = _shared_attn_forward(x, params, cos, sin, cfg, use_kernel)
             attn_kv.append(kv)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _lm_head(params, x, cfg)
@@ -135,6 +149,15 @@ def forward(params, batch, cfg: ModelConfig, *, collect_cache: bool = False):
         cache["attn_k"] = torch.stack([k for k, _ in attn_kv])
         cache["attn_v"] = torch.stack([v for _, v in attn_kv])
     return logits, cache
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """``(loss, {"ce": loss})``: the JAX ``loss_fn``'s next-token
+    cross-entropy (:func:`~repro_torch.models.common.lm_loss`) through
+    :func:`forward` without the kernels."""
+    logits, _ = forward(params, batch, cfg, use_kernel=False)
+    loss = lm_loss(logits, batch["targets"])
+    return loss, {"ce": loss}
 
 
 # ---------------------------------------------------------------------------------
@@ -218,5 +241,5 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig):
     return _lm_head(params, x, cfg), cache
 
 
-__all__ = ["init_params", "init_mamba_layer", "forward", "prefill", "decode_step",
+__all__ = ["init_params", "init_mamba_layer", "forward", "loss_fn", "prefill", "decode_step",
            "init_cache"]

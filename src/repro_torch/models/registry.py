@@ -37,6 +37,7 @@ class Model:
     device: torch.device
     init_params: Callable          # seed -> params on ``device``
     forward: Callable              # (params, batch) -> (logits, aux)
+    loss_fn: Callable              # (params, batch) -> (loss, metrics)
     # (params, batch, max_len, ...) -> (logits (B,1,V), cache)
     prefill: Callable
     # (params, cache, token (B,1), pos, ...) -> (logits, cache)
@@ -48,27 +49,37 @@ class Model:
     verify_step: Callable | None = None
     supports_paged: bool = True    # decode_step takes block_table= (paged KV)
 
+    def abstract_params(self) -> dict:
+        """The parameter tree's shapes and dtypes, as ``jax.eval_shape`` of
+        the init gives them: meta tensors, no weight drawn or stored."""
+        return self.init_params(0, device="meta")
+
 
 def build_model(cfg: ModelConfig, *, device=None) -> Model:
     """dense/moe/vlm bind :mod:`repro_torch.models.lm` (paged, with the
     mixed step); ssm/hybrid bind :mod:`repro_torch.models.mamba_lm`, which
-    the engine serves through its dense-cache fallback."""
+    the engine serves through its dense-cache fallback; audio/encdec bind
+    :mod:`repro_torch.models.whisper`, which runs at model level (the
+    engine's first prefill raises ``KeyError: 'enc_embeds'``, as the JAX
+    engine's does)."""
     if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import lm as mod
         paged = True
     elif cfg.family in ("ssm", "hybrid"):
         from repro_torch.models import mamba_lm as mod
         paged = False
+    elif cfg.family in ("audio", "encdec"):
+        from repro_torch.models import whisper as mod
+        paged = False
     else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1: "
-            "other families)")
+        raise ValueError(f"unknown family {cfg.family}")
     dev = resolve_device(device)
     return Model(
         cfg=cfg,
         device=dev,
         init_params=partial(mod.init_params, cfg=cfg, device=dev),
         forward=partial(mod.forward, cfg=cfg),
+        loss_fn=partial(mod.loss_fn, cfg=cfg),
         prefill=partial(mod.prefill, cfg=cfg),
         decode_step=partial(mod.decode_step, cfg=cfg),
         init_cache=partial(mod.init_cache, cfg, device=dev),

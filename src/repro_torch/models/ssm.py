@@ -13,10 +13,9 @@ chunk states:
 With ``use_kernel`` only the intra-chunk term goes to
 :func:`repro_torch.kernels.ssd.ops.ssd_intra` (the CUDA kernel on the card,
 its plain version on the CPU); without it, to that plain version.  The rest
-stays plain, as in the JAX package.  ``use_kernel`` is kept for parity with
-the JAX signatures, whose tests hold both settings against each other; the
-model always passes True, since the wrapper already takes the plain version
-for CPU tensors.
+stays plain, as in the JAX package.  The model passes ``use_kernel=True``
+to serve (the wrapper takes the plain version for CPU tensors) and False to
+train, where autograd runs through the plain version on either device.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """The PyTorch port's import boundary: nothing under src/repro_torch/ and
 nothing in chip_smoke.py imports JAX, ml_dtypes or the JAX package, and the
-numpy-only control plane copied from the JAX package stays a verbatim copy
-(``repro_torch.`` for ``repro.``), so the two cannot drift silently."""
+numpy-only control plane and data pipeline copied from the JAX package stay
+verbatim copies (``repro_torch.`` for ``repro.``), so the two cannot drift
+silently."""
 import ast
 import re
 from pathlib import Path
@@ -14,7 +15,7 @@ JAX_PKG = ROOT / "src" / "repro"
 FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
 COPIED = ("core/__init__.py", "core/scaling", "core/autoscaler", "core/convergence",
           "core/simulator", "core/chaos", "core/signals", "utils",
-          "core/elastic/__init__.py", "core/elastic/cluster.py")
+          "core/elastic/__init__.py", "core/elastic/cluster.py", "data/pipeline.py")
 # The one port-written file under core/: the JAX module rebuilds a device
 # mesh and reshards through jax and repro.distributed.sharding, which the
 # port does not have yet (ROADMAP.md Queue 1 item 8).  Its one-card stand-in

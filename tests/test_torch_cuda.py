@@ -939,3 +939,107 @@ def test_duplicate_trash_writes_resolve_on_card_as_on_cpu():
     for _ in range(3):
         out = paged_update_span(pages.to(dev), new.to(dev), tbl.to(dev), pos.to(dev))
         assert torch.equal(out.cpu(), ref)
+
+
+# ---------------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------------
+
+def _grad_inputs(dev):
+    """One small call of every CUDA wrapper, each with its first input
+    requiring grad: (name, wrapper, args, kwargs)."""
+    rng = np.random.default_rng(9)
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    q, kp, vp, _, _, tbl, starts = mixed_inputs(3, False, D=64, ps=16, n=4, T=4)
+    fq, fk, fv = flash_inputs(2, D=64)
+    q1, kc, vc = dense_decode_inputs(2, 64, 4, 2, 64)
+    xb, acs, Bq, Cq = ssd_inputs(nc=1, q=64, h=4, p=64, n=64)
+    Bh = torch.from_numpy(Bq).to(dev).expand(-1, -1, -1, 4, -1)
+    Ch = torch.from_numpy(Cq).to(dev).expand(-1, -1, -1, 4, -1)
+    lengths = torch.from_numpy(starts + 1).to(dev)
+    tb, st = torch.from_numpy(tbl).to(dev), torch.from_numpy(starts).to(dev)
+    return [
+        ("flash_attention", flash_attention_dyn, (f32(fq), f32(fk), f32(fv), -1), {}),
+        ("decode_attention_mixed", decode_attention_mixed, (f32(q), f32(kp), f32(vp), tb, st), {}),
+        ("decode_attention_paged", decode_attention_paged,
+         (f32(q[:, :1]), f32(kp), f32(vp), tb, lengths), {}),
+        ("decode_attention", decode_attention, (f32(q1), f32(kc), f32(vc), 40), {}),
+        ("greedy_epilogue", greedy_epilogue, (f32(rng.normal(size=(4, 999))),), {}),
+        ("fused_lmhead_greedy", fused_lmhead_greedy,
+         (f32(rng.normal(size=(4, 64))), f32(rng.normal(size=(64, 999)))), {}),
+        ("ssd_intra", ssd_intra, (f32(xb), f32(acs), Bh, Ch), {}),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", range(7), ids=["flash_attention", "decode_attention_mixed",
+                                                 "decode_attention_paged", "decode_attention",
+                                                 "greedy_epilogue", "fused_lmhead_greedy",
+                                                 "ssd_intra"])
+def test_wrapper_raises_when_asked_for_a_gradient(which):
+    """Each CUDA wrapper refuses an input that requires grad while autograd
+    records (its kernel has no backward), launches nothing then, and runs
+    as before under torch.no_grad."""
+    dev = require_cuda()
+    name, fn, args, kw = _grad_inputs(dev)[which]
+    args = (args[0].clone().requires_grad_(True),) + args[1:]
+    before = fn.launches
+    with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward"):
+        fn(*args, **kw)
+    assert fn.launches == before
+    with torch.no_grad():
+        fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "olmoe-1b-7b", "mamba2-1.3b",
+                                  "zamba2-2.7b", "whisper-small"])
+def test_train_step_on_card_matches_cpu(arch):
+    """The smoke config at float32: one train step's loss and every gradient
+    leaf (within 1e-4 + 1e-4 * |ref| of the leaf's largest magnitude, as
+    ``chip_smoke.py`` phase 10a: f32 sums in the card's orders; zamba2's
+    embedding gradient measured 2.5e-5), then a 3-step loss curve (within
+    1e-4 relative), card against CPU; no kernel launches during the
+    steps."""
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training import make_train_step
+    from repro_torch.training.train_step import loss_and_grads
+    dev = require_cuda()
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32, remat="block")
+    params = build_model(cfg, device="cpu").init_params(0)
+    rng = np.random.default_rng(6)
+    batches = []
+    for _ in range(3):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32))
+        b = {"tokens": tokens, "targets": tokens}
+        if cfg.family == "audio":
+            b["enc_embeds"] = torch.from_numpy(
+                rng.normal(size=(4, cfg.enc_len, cfg.d_model)).astype(np.float32))
+        batches.append(b)
+    counters = (flash_attention_dyn, decode_attention_mixed, decode_attention_paged,
+                decode_attention, greedy_epilogue, fused_lmhead_greedy, ssd_intra)
+    before = [c.launches for c in counters]
+    out = {}
+    for where in ("cpu", dev):
+        m = build_model(cfg, device=where)
+        p = tree_to(params, where)
+        loss, _, g = loss_and_grads(m.loss_fn, p, {k: v.to(where) for k, v in batches[0].items()})
+        step = make_train_step(m, AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=3))
+        o, losses = adamw_init(p), []
+        for b in batches:
+            p, o, met = step(p, o, b)
+            losses.append(float(met["loss"]))
+        out[str(where)] = (float(loss), {k: t.cpu() for k, t in _flatten(g).items()}, losses)
+    assert [c.launches for c in counters] == before
+    (l_gpu, g_gpu, c_gpu), (l_cpu, g_cpu, c_cpu) = out["cuda"], out["cpu"]
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-5)
+    for key, ref in g_cpu.items():
+        scale = max(float(ref.abs().max()), 1e-6)
+        torch.testing.assert_close(g_gpu[key] / scale, ref / scale, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, key=key: f"{key}: {m}")
+    np.testing.assert_allclose(c_gpu, c_cpu, rtol=1e-4)

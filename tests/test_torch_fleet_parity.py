@@ -149,13 +149,13 @@ def test_load_checkpoint_checks_the_expected_shapes(tmp_path):
     _, tc = _configs("float32")
     tp = build_model(tc, device="cpu").init_params(0)
     path = save_checkpoint(str(tmp_path / "c.npz"), tp)
-    params, _ = load_checkpoint(path, device="cpu", expected=tp)
+    params, _ = load_checkpoint(path, tp, device="cpu")
     got = _port_leaves(params)
     assert all(torch.equal(got[k], t) for k, t in _port_leaves(tp).items())
     wide = build_model(dataclasses.replace(tc, d_model=2 * tc.d_model),
                        device="cpu").init_params(0)
     with pytest.raises(ValueError, match="shape mismatch for embed"):
-        load_checkpoint(path, device="cpu", expected=wide)
+        load_checkpoint(path, wide, device="cpu")
 
 
 # ---------------------------------------------------------------------------------

@@ -225,3 +225,34 @@ def test_greedy_epilogue_plain_ties_across_tiles_match_jax(B, V):
     np.testing.assert_array_equal(tok.numpy(), tok_k)
     np.testing.assert_allclose(lp.numpy(), lp_k, atol=1e-5)
     assert tok[0].item() == 5 and tok[1].item() == 0
+
+
+def test_refuse_grad_guards_only_tracked_inputs():
+    """The guard every CUDA wrapper runs before its launch: it raises while
+    autograd records and an input requires grad, and passes under
+    torch.no_grad, for inputs that do not, and for absent (None) ones."""
+    from repro_torch.kernels import refuse_grad
+    x = torch.zeros(3, requires_grad=True)
+    y = torch.zeros(3)
+    with pytest.raises(RuntimeError, match="flash_attention: the CUDA kernel has no backward"):
+        refuse_grad("flash_attention", y, x)
+    refuse_grad("flash_attention", y, None)
+    with torch.no_grad():
+        refuse_grad("flash_attention", x, y)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "gemma3-4b", "zamba2-2.7b"])
+def test_training_route_equals_the_kernel_route_on_cpu(arch):
+    """On the CPU, ``forward(..., use_kernel=False)`` (the JAX non-kernel
+    branch that ``loss_fn`` takes, on every device) gives the logits of the
+    default route through the wrappers' plain versions."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    model = build_model(cfg, device="cpu")
+    params = model.init_params(1)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 24)))
+    a, _ = model.forward(params, {"tokens": tokens})
+    b, _ = model.forward(params, {"tokens": tokens}, use_kernel=False)
+    torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
