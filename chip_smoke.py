@@ -114,7 +114,16 @@ Phases, each of which fails the run if it fails:
    frame embeddings and a 32-token prompt, 16 decode steps, one train
    step.  No kernel launches during any train step (every counter is
    read around each step): training runs the plain route, as the JAX
-   package trains with its kernels off.
+   package trains with its kernels off;
+11. the sharded train step on a one-rank NCCL mesh (``file://`` store,
+   1x1 ("data", "model")): qwen2.5-3b ``CONFIG`` at full width, 4 of 36
+   layers, B 4 x S 512: 3 ``sharded_step``s equal 3 plain steps from the
+   same state bit for bit (losses, parameters, moments); a train-state
+   checkpoint restored onto the mesh by ``restore_resharded`` bit for bit,
+   with one copy's peak device memory; ``compress_allreduce_pod`` over a
+   one-rank pod group exact; ``measure_provision_delay`` at dp 1, tp 1;
+   then, under torch's fake backend, the parameters restored onto a (2, 4)
+   mesh as rank 6, holding only that rank's blocks on the card.
 
 The second-to-last line of stdout is the ``kernels`` JSON record (the greedy
 epilogue's launches are phase 5b's plus phase 5c's; a record named
@@ -2836,6 +2845,236 @@ def whisper_full(dev, counters) -> None:
 
 
 
+# ---------------------------------------------------------------------------------
+# phase 11: the sharded train step on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------------
+
+SHARDED_LAYERS = 4              # qwen2.5-3b's 36 layers cut for the train-state file
+
+
+def sharded_train(dev, counters, tmp: str) -> None:
+    """Phase 11: NCCL at world size 1 from a ``file://`` store, a 1x1
+    ("data", "model") mesh, and qwen2.5-3b ``CONFIG`` (bf16, full width,
+    ``SHARDED_LAYERS`` of its 36 layers) at phase 10c's B 4 x S 512:
+    ``shard_params`` and ``train_state_shardings``; 3 steps of
+    ``sharded_step`` against 3 plain steps from the same state, in place,
+    both with deterministic index backwards (gate: losses, parameters and
+    moments equal bit for bit: at one rank every gather and reduction is an
+    identity); a train-state checkpoint of the sharded state, then
+    ``restore_resharded`` onto the mesh (gate: bit for bit);
+    ``compress_allreduce_pod`` over the one-rank pod group of a 1x1x1 mesh,
+    twice, the second with the first's residual (gate: the reduction equals
+    ``dequant(quant(g + e))`` and the residual ``g + e`` minus it, exactly);
+    ``measure_provision_delay`` at dp 1, tp 1; then :func:`fake_restore`
+    of the parameters onto a (2, 4) mesh.  No kernel launches in a train
+    step.  Prints each step's ms, the save, restore and provision seconds,
+    the restores' peak device memory, and the phase's.  The process group
+    is destroyed in a ``finally``."""
+    import dataclasses
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_resharded, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.elastic.remesh import measure_provision_delay
+    from repro_torch.distributed.compression import (
+        _dequantize, _quantize, compress_allreduce_pod, init_error_state)
+    from repro_torch.distributed.sharding import (
+        place, shard_params, sharded_loss_and_grads, sharded_step)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.training import make_train_step, train_state_shardings
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=SHARDED_LAYERS)
+    B, S, n = 4, 512, 3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                            rank=0, world_size=1)
+    failures = []
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        model = build_model(cfg)                               # on the GPU
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=n),
+                               donate=True)
+        batches = train_batches(cfg, n, B, S, SEED + 2)
+        p_sh, o_sh, b_sh = train_state_shardings(model, mesh, batches[0])
+        host = tree_map(lambda t: t.cpu(), model.init_params(SEED))
+        run = sharded_step(step, (p_sh, o_sh, b_sh))
+
+        def train(fn, params, opt, what):
+            losses, times = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, met = no_launch_during(counters, what,
+                                                    lambda: fn(params, opt, b))
+                losses.append(float(met["loss"]))
+                times.append((time.perf_counter() - t0) * 1e3)
+            return params, opt, losses, times
+
+        # deterministic index backwards, as in phase 10b, so the two runs
+        # can give the same bits
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                params = tree_map(lambda t: t.to(dev, copy=True), host)
+                p1, o1, l1, t1 = train(step, params, adamw_init(params), "11 plain")
+                params = tree_map(lambda t: t.to(dev, copy=True), host)
+                sp = shard_params(params, mesh)
+                so = tree_map(place, adamw_init(params), o_sh)
+                del params
+                sp, so, l2, t2 = train(run, sp, so, "11 sharded")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same_p = all(torch.equal(a.full_tensor(), b)
+                     for a, b in zip(tree_leaves(sp), tree_leaves(p1)))
+        same_o = all(torch.equal(a.full_tensor(), b)
+                     for a, b in zip(tree_leaves(so), tree_leaves(o1)))
+        ok = l1 == l2 and same_p and same_o
+        log(f"[sharded] {cfg.name} bf16 ({cfg.n_layers} of 36 layers, d {cfg.d_model}, vocab "
+            f"{cfg.vocab}) B {B} x S {S} on a 1x1 NCCL mesh: plain losses {l1}, ms "
+            f"{[round(x, 1) for x in t1]}; sharded losses {l2}, ms "
+            f"{[round(x, 1) for x in t2]}; losses equal {l1 == l2}, parameters equal "
+            f"{same_p}, moments equal {same_o}: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failures.append("sharded step != plain step")
+        del p1, o1
+
+        # a train-state checkpoint, restored onto the mesh
+        state = {"params": sp, "opt": so}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(tmp, "state.npz"),
+                               tree_map(lambda t: t.full_tensor().cpu(), state), step=n)
+        save_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        restored, meta = restore_resharded(path, state, {"params": p_sh, "opt": o_sh})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restore_peak = torch.cuda.max_memory_allocated() - base
+        same = all(torch.equal(a.full_tensor(), b.full_tensor()) and a.dtype == b.dtype
+                   and a.placements == b.placements
+                   for a, b in zip(tree_leaves(restored), tree_leaves(state)))
+        n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(restored))
+        one_copy = restore_peak <= 1.01 * n_bytes + 64 * 2**20
+        ok = same and one_copy and meta.get("step") == n
+        log(f"[sharded] train-state checkpoint ({n_bytes / 1e9:.2f} GB, "
+            f"{len(tree_leaves(state))} leaves): save {save_s:.2f} s, restore_resharded "
+            f"{restore_s:.2f} s, equal bit for bit {same}; the restore's peak device memory "
+            f"{restore_peak / 2**20:.0f} MiB for {n_bytes / 2**20:.0f} MiB of blocks (one "
+            f"copy, within 1% and 64 MiB: {one_copy}): {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failures.append("restore_resharded")
+        params_path = save_checkpoint(os.path.join(tmp, "params.npz"),
+                                      tree_map(lambda t: t.full_tensor().cpu(), sp), step=n)
+        del restored, state, so
+
+        # int8 compression over the one-rank pod group
+        pod_mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        _, grads = sharded_loss_and_grads(step, sp, batches[0], (p_sh, b_sh))
+        grads = tree_map(lambda g: g.to_local(), grads)
+        err = init_error_state(grads)
+        exact = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            red, new_err = compress_allreduce_pod(grads, err, group=pod_mesh.get_group("pod"))
+            for g, e, r, ne in zip(*(tree_leaves(t) for t in (grads, err, red, new_err))):
+                x = g.float() + e
+                d = _dequantize(*_quantize(x))
+                exact &= torch.equal(r, d) and torch.equal(ne, x - d)
+            err = new_err
+        torch.cuda.synchronize()
+        comp_ms = (time.perf_counter() - t0) * 1e3 / 2
+        log(f"[sharded] compress_allreduce_pod over a one-rank pod group ({len(tree_leaves(grads))} "
+            f"leaves): reduction = dequant(quant(g + e)) and exact residuals over two rounds "
+            f"{exact}, {comp_ms:.1f} ms a round with the checks: {'ok' if exact else 'FAILED'}")
+        if not exact:
+            failures.append("compress_allreduce_pod")
+        del grads, err, red, new_err
+
+        secs, new_mesh, _ = measure_provision_delay(model, sp, devices=[0], model_parallel=1)
+        log(f"[sharded] measure_provision_delay at dp 1, tp 1 (mesh "
+            f"{tuple(new_mesh.shape)}): {secs:.3f} s; peak memory over phase 11 "
+            f"{max(peak, torch.cuda.max_memory_allocated()) / 2**20:.0f} MiB; card "
+            f"{card_line()}")
+        if not secs > 0:
+            failures.append("provision delay")
+        del sp, model
+    finally:
+        dist.destroy_process_group()
+    if not fake_restore(cfg, params_path, n):
+        failures.append("restore_resharded onto (2, 4)")
+    if failures:
+        raise AssertionError("sharded training failed: " + "; ".join(failures))
+
+
+
+def fake_restore(cfg, path: str, step: int) -> bool:
+    """Phase 11's restore onto a (2, 4) ("data", "model") mesh on the card,
+    as rank 6 (coordinate (1, 2)) of 8 under torch's fake backend, which
+    moves no data (no other rank runs): ``restore_resharded`` of ``path``
+    (``cfg``'s parameters), each local block against the whole leaf's block
+    cut on the host, and the restore's peak device memory against the bytes
+    of this rank's blocks (gate: within 1% and 64 MiB: the file is read
+    into host memory and only the blocks reach the card).  Its own process
+    group, destroyed in a ``finally``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.checkpoint import load_checkpoint, restore_resharded
+    from repro_torch.distributed import param_sharding
+    from repro_torch.models import build_model
+    from repro_torch.pytree import tree_leaves
+
+    coord = (1, 2)
+    template = build_model(cfg, device="meta").abstract_params()
+    torch.cuda.empty_cache()
+    dist.init_process_group("fake", store=FakeStore(), rank=6, world_size=8)
+    try:
+        mesh = init_device_mesh("cuda", (2, 4), mesh_dim_names=("data", "model"))
+        sh = param_sharding(template, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tree, meta = restore_resharded(path, template, sh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        ok_coord = tuple(mesh.get_coordinate()) == coord
+    finally:
+        dist.destroy_process_group()
+    ref, _ = load_checkpoint(path, template, device="cpu")
+    equal = True
+    for t, r, s in zip(tree_leaves(tree), tree_leaves(ref), tree_leaves(sh)):
+        want = r
+        for mdim, pl in enumerate(s.placements):
+            if pl.is_shard():
+                k = want.shape[pl.dim] // mesh.size(mdim)
+                want = want.narrow(pl.dim, coord[mdim] * k, k)
+        equal &= t.dtype == r.dtype and torch.equal(t.to_local().cpu(), want)
+    local = sum(t.to_local().numel() * t.element_size() for t in tree_leaves(tree))
+    whole = sum(r.numel() * r.element_size() for r in tree_leaves(ref))
+    blocks_only = peak <= 1.01 * local + 64 * 2**20
+    ok = equal and ok_coord and blocks_only and meta.get("step") == step
+    log(f"[sharded] restore_resharded of {cfg.name}'s parameters ({whole / 2**20:.0f} MiB) "
+        f"onto a (2, 4) mesh as rank 6 under the fake backend: {secs:.2f} s; blocks equal "
+        f"{equal}; peak device memory {peak / 2**20:.0f} MiB for {local / 2**20:.0f} MiB of "
+        f"this rank's blocks (within 1% and 64 MiB: {blocks_only}): "
+        f"{'ok' if ok else 'FAILED'}")
+    return ok
+
 
 def main() -> int:
     import torch
@@ -2945,6 +3184,13 @@ def main() -> int:
     train_wide(dev, all_counters)
     whisper_full(dev, all_counters)
     log(f"[train] phases 10a-10d in {time.perf_counter() - t0:.1f} s")
+
+    # the sharded train step on a one-rank NCCL mesh
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sharded-") as tmp:
+        sharded_train(dev, all_counters, tmp)
+    log(f"[sharded] phase 11 in {time.perf_counter() - t0:.1f} s")
 
     log(f"[done] greedy_epilogue launches: {launches['greedy_epilogue']} in phase 5b, "
         f"{ssm_launches['greedy_epilogue']} in phase 5c")

@@ -5,8 +5,9 @@ from repro_torch.checkpoint.store import (
     load_checkpoint,
     load_jax_npz,
     params_from_jax,
+    restore_resharded,
     save_checkpoint,
 )
 
 __all__ = ["F32_LEAVES", "OK_SUFFIX", "CheckpointManager", "load_checkpoint",
-           "load_jax_npz", "params_from_jax", "save_checkpoint"]
+           "load_jax_npz", "params_from_jax", "restore_resharded", "save_checkpoint"]

@@ -14,8 +14,8 @@ model's parameters (:mod:`repro_torch.models.lm`,
 :mod:`repro_torch.models.mamba_lm`, :mod:`repro_torch.models.whisper`) or a
 whole train state (``{"params": ..., "opt": {"m", "v", "step"}}``,
 :mod:`repro_torch.launch.train`), with the JAX package's keys.
-``restore_resharded`` has no counterpart yet: the port has no sharding
-(ROADMAP.md Queue 1 item 8).
+:func:`restore_resharded` places each leaf it reads on a device mesh, for a
+restart at another world size or a replica's re-placement.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import place
 from repro_torch.models.registry import resolve_device
 from repro_torch.pytree import tree_map
 
@@ -215,6 +216,26 @@ def load_checkpoint(path: str, template=None, *, device=None, dtype=None):
     return params_from_jax(out, device=device), meta
 
 
+def restore_resharded(path: str, template, shardings):
+    """Load + place each leaf with the sharding for the NEW mesh:
+    ``(tree, meta)``, every leaf a DTensor.
+
+    :func:`load_checkpoint` with ``template`` (tensors, meta tensors or
+    DTensors: only shapes and dtypes are read, so a bf16 model's float32
+    router and a train state's float32 moments keep theirs) into host
+    memory, as the JAX package reads the file with numpy; then each leaf
+    :func:`~repro_torch.distributed.sharding.place`d under its
+    :class:`~repro_torch.distributed.sharding.NamedSharding` in
+    ``shardings`` (e.g. ``param_sharding(template, mesh)``), which cuts it
+    on the host and moves only this rank's blocks to the mesh's device.
+    Every rank reads the whole file; the file may come from either
+    package."""
+    abstract = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                        template)
+    tree, meta = load_checkpoint(path, abstract, device="cpu")
+    return tree_map(place, tree, shardings), meta
+
+
 class CheckpointManager:
     """Rotating checkpoint directory with an optional background-thread save."""
 
@@ -279,4 +300,4 @@ class CheckpointManager:
 
 
 __all__ = ["F32_LEAVES", "OK_SUFFIX", "STACKED", "CheckpointManager", "load_checkpoint",
-           "load_jax_npz", "params_from_jax", "save_checkpoint"]
+           "load_jax_npz", "params_from_jax", "restore_resharded", "save_checkpoint"]

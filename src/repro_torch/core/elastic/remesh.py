@@ -1,20 +1,24 @@
-"""Replica placement on one card: the counterpart of the JAX package's mesh
-rebuild + parameter resharding (``repro.core.elastic.remesh``).
+"""The real mechanism behind replica elasticity: mesh rebuild + parameter
+resharding.
 
-Scale-out there rebuilds the device mesh at the new data-parallel degree
-and ``device_put``s the parameters under the shardings derived for it.  The
-port has no sharding yet (ROADMAP.md Queue 1 item 8), so a replica is one
-whole copy of the parameters on one device, and on one H100 the replicas
-share the card.  The five names of the JAX module are kept, so
-``repro_torch.core.elastic`` re-exports what ``repro.core.elastic`` does:
+Counterpart of ``repro.core.elastic.remesh``.  Scale-out means: bring up
+new ranks, rebuild the device mesh at the new DP degree, and re-place the
+parameters under the shardings the rules derive for the new mesh
+(:func:`repro_torch.distributed.sharding.param_sharding`).  A DTensor on
+the same mesh is redistributed (DTensor moves only the bytes that must
+move); DTensor redistributes only within one mesh, so a leaf on another
+mesh is gathered whole there and cut for the new one; a plain tensor is
+cut.  Fault handling uses the same path: on a lost rank, rebuild the mesh
+over the survivors and restore from the latest checkpoint
+(:func:`repro_torch.checkpoint.restore_resharded`).
 
-* :func:`elastic_remesh_plan` and :func:`provisioned_cluster_config` are the
-  JAX package's functions as they are;
-* :func:`remesh_params` re-places a parameter tree on one device (a copy);
-* :func:`scale_replicas` places one replica's parameters and refuses what
-  needs sharding (tensor parallelism, more than one device);
-* :func:`measure_provision_delay` times placement plus a first forward,
-  synchronising the card before it reads the clock.
+A mesh is a ``DeviceMesh`` over ranks of the default process group.  Given
+one device and ``model_parallel=1`` instead of ranks -- one replica on one
+card, as :mod:`repro_torch.serving.fleet` places each replica -- the mesh
+is that device and the re-placement a copy of the tree on it, whether or
+not a process group is up: the one-device case of the same functions.  The five names of the JAX module
+are kept, so ``repro_torch.core.elastic`` re-exports what
+``repro.core.elastic`` does.
 """
 from __future__ import annotations
 
@@ -22,9 +26,12 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
-_NO_SHARDING = ("the port has no sharding yet (ROADMAP.md Queue 1 item 8, "
-                "distributed): a replica is one whole copy on one device")
+from repro_torch.distributed.sharding import param_sharding, place
+from repro_torch.pytree import tree_leaves, tree_map
 
 
 def elastic_remesh_plan(n_devices: int, *, model_parallel: int) -> tuple[int, int]:
@@ -34,50 +41,68 @@ def elastic_remesh_plan(n_devices: int, *, model_parallel: int) -> tuple[int, in
     return n_devices // model_parallel, model_parallel
 
 
-def remesh_params(params, device):
-    """A copy of the parameter tree (dicts and lists of tensors) on
-    ``device``; the source tree is left as it is."""
-    if isinstance(params, dict):
-        return {k: remesh_params(v, device) for k, v in params.items()}
-    if isinstance(params, list):
-        return [remesh_params(v, device) for v in params]
-    return params.to(device, copy=True)
+def remesh_params(params, new_mesh):
+    """Re-place ``params`` for ``new_mesh`` under the standard sharding
+    rules.  ``new_mesh``: a ``DeviceMesh`` (every rank of the process group
+    calls this), or one device, onto which a copy of the tree goes (the
+    source tree is left as it is)."""
+    if isinstance(new_mesh, DeviceMesh):
+        return tree_map(place, params, param_sharding(params, new_mesh))
+    return tree_map(lambda t: t.to(new_mesh, copy=True), params)
 
 
-def scale_replicas(params, *, devices, model_parallel: int = 1) -> tuple:
-    """Place one replica's parameters on ``devices[0]``.  Returns
-    ``(devices, params_on_devices[0])``.  Raises NotImplementedError where
-    the JAX package would shard: ``model_parallel > 1`` or more than one
-    device."""
+def scale_replicas(params, *, devices, model_parallel: int = 1,
+                   axis_names=("data", "model")) -> tuple:
+    """Build a mesh over ``devices`` at the widest DP degree and re-place
+    params.  Returns ``(new_mesh, params_on_new_mesh)``.
+
+    ``devices``: ranks of the process group (ints), over which a
+    ``DeviceMesh`` is built; or one device (a ``torch.device`` or its name)
+    at ``model_parallel=1``, which is then the mesh, and the parameters a
+    copy on it, whether or not a process group is up."""
     devices = list(devices)
-    if model_parallel > 1 or len(devices) != 1:
-        raise NotImplementedError(
-            f"scale_replicas over {len(devices)} device(s) at model_parallel="
-            f"{model_parallel}: {_NO_SHARDING}")
-    elastic_remesh_plan(len(devices), model_parallel=model_parallel)
-    return devices, remesh_params(params, devices[0])
+    dp, tp = elastic_remesh_plan(len(devices), model_parallel=model_parallel)
+    if not all(isinstance(d, int) for d in devices):
+        if dp * tp != 1:
+            raise ValueError(f"scale_replicas over {devices}: a mesh is built over ranks of "
+                             f"the process group (ints); a device is one replica at tp 1")
+        return devices, remesh_params(params, devices[0])
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"scale_replicas over {len(devices)} ranks at model_parallel={tp} needs a "
+            f"process group: call torch.distributed.init_process_group first")
+    leaf = tree_leaves(params)[0]
+    device_type = (leaf.device_mesh.device_type if isinstance(leaf, DTensor)
+                   else leaf.device.type)
+    mesh = DeviceMesh(device_type, torch.tensor(devices).reshape(dp, tp),
+                      mesh_dim_names=tuple(axis_names))
+    return mesh, remesh_params(params, mesh)
 
 
 def measure_provision_delay(model, params, *, devices, model_parallel: int,
                             probe_batch: int = 2, probe_len: int = 16):
-    """Measure the wall-clock cost of ONE elastic transition -- parameter
-    placement + first forward on the new device.
+    """Measure the wall-clock cost of ONE elastic transition -- mesh rebuild +
+    parameter re-placement + first forward on the new mesh.
 
     The live analogue of ``ClusterConfig.provision_delay_s``: what a replica
     actually costs to bring up, measured on the serving path instead of
-    assumed.  The clock is read after ``torch.cuda.synchronize()`` on a
-    CUDA device, so the time covers the device's work and not only the
-    host's enqueue.  Returns ``(seconds, devices, params_on_device)``.
+    assumed.  The forward runs on the parameters gathered whole (the port's
+    model functions take plain tensors).  The clock is read after
+    ``torch.cuda.synchronize()`` on a CUDA device, so the time covers the
+    device's work and not only the host's enqueue.  Returns ``(seconds,
+    new_mesh, params_on_new_mesh)`` so a sweep can chain transitions on the
+    re-placed params.
     """
     t0 = time.perf_counter()
-    devices, params = scale_replicas(params, devices=devices,
-                                     model_parallel=model_parallel)
-    device = torch.device(devices[0])
+    mesh, params = scale_replicas(params, devices=devices,
+                                  model_parallel=model_parallel)
+    whole = tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, params)
+    device = tree_leaves(whole)[0].device
     tokens = torch.zeros((probe_batch, probe_len), dtype=torch.long, device=device)
-    model.forward(params, {"tokens": tokens})
+    model.forward(whole, {"tokens": tokens})
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return time.perf_counter() - t0, devices, params
+    return time.perf_counter() - t0, mesh, params
 
 
 def provisioned_cluster_config(base, measured_s: float, *,

@@ -20,7 +20,14 @@ Counterpart of ``repro.launch.train``, with the same flags plus
 * ``--simulate-failure N`` kills the process at step N (exit 17); the
   outer supervisor loop (``--supervise``) restarts
   ``python -m repro_torch.launch.train``, proving end-to-end
-  checkpoint/restart.
+  checkpoint/restart;
+* deterministic kernels (``torch.use_deterministic_algorithms``, with
+  cuBLAS's workspace fixed by ``CUBLAS_WORKSPACE_CONFIG`` before cuBLAS
+  starts), so a resumed run repeats the uninterrupted run's losses bit for
+  bit on the card too (the embedding's index backward otherwise
+  accumulates with atomics, in no fixed order).  ``--loss-log PATH``
+  appends each step's exact loss (``step float.hex()``), the record such a
+  comparison reads.
 """
 from __future__ import annotations
 
@@ -34,7 +41,10 @@ import numpy as np
 
 
 def train(args) -> int:
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")   # before cuBLAS starts
     import torch
+    # an op with no deterministic kernel warns instead of stopping the run
+    torch.use_deterministic_algorithms(True, warn_only=True)
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config, get_smoke_config
@@ -73,6 +83,9 @@ def train(args) -> int:
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
         losses.append(loss)
+        if args.loss_log:
+            with open(args.loss_log, "a") as f:
+                f.write(f"{step} {loss.hex()}\n")
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t0
             print(f"[train] step {step} loss {loss:.4f} "
@@ -125,6 +138,8 @@ def main():
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--simulate-failure", type=int, default=-1)
     ap.add_argument("--supervise", action="store_true")
+    ap.add_argument("--loss-log", default="",
+                    help="append each step's exact loss to this file (step float.hex())")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions, for the smoke configs)")
     args, rest = ap.parse_known_args()

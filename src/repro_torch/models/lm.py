@@ -137,8 +137,7 @@ def _ffn(h, bp, cfg: ModelConfig, *, aux: bool = False):
     batch, idle rows included, as in the JAX package), else the gated MLP.
     The load-balance loss is computed only with ``aux`` (only
     :func:`forward` returns it), else it is 0.0.  The JAX package's
-    expert-parallel branch (``moe_ep``) waits for the port's sharding
-    (ROADMAP.md Queue 1 item 8)."""
+    expert-parallel branch (``moe_ep``) is ROADMAP.md Queue 1 item 8b."""
     if cfg.moe:
         B, S, d = h.shape
         out, loss = moe_ffn(h.reshape(B * S, d), bp["moe"], cfg.moe, aux=aux)

@@ -6,8 +6,8 @@ Counterpart of ``repro.models.moe``, with its semantics exactly: the
 within its expert group comes from the sorted run starts, and pairs beyond
 the expert capacity are dropped (their combine weight is zero, so the
 residual path carries them).  The JAX module's ``_constrain`` is a sharding
-hint for the expert-parallel layout and has no counterpart here: the port
-has no sharding yet (ROADMAP.md Queue 1 item 8, with ``moe_ep``).
+hint for the expert-parallel layout and has no counterpart here yet: it
+comes with ``moe_ep`` (ROADMAP.md Queue 1 item 8b).
 
 Every product runs outside any hand-written kernel, as the JAX package runs
 its ``einsum``s outside any Pallas kernel.  The combine sums each token's

@@ -73,11 +73,14 @@ def _groups(n_elements: list[int]) -> list[list[int]]:
     return groups + ([cur] if cur else [])
 
 
-def adamw_update(params, grads, state, cfg: AdamWConfig, *, donate: bool = False):
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, donate: bool = False,
+                 grad_norm: torch.Tensor | None = None):
     """One AdamW step: ``(params, state, {"lr", "grad_norm"})``.
 
     The gradients are clipped to a global norm of ``cfg.grad_clip``; the
-    metrics report the norm before clipping.  Without ``donate`` the
+    metrics report the norm before clipping.  ``grad_norm``: that norm where
+    the caller has it (a sharded step's norm over every shard, of which
+    ``grads`` holds this rank's), else :func:`global_norm` of ``grads``.  Without ``donate`` the
     inputs are left as they are and new trees are returned, as in the JAX
     package; with it, each parameter and moment is overwritten in place and
     the same tensors come back (``jax.jit(..., donate_argnums=(0, 1))`` of
@@ -87,7 +90,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, *, donate: bool = False
     """
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 
     b1, b2 = cfg.beta1, cfg.beta2

@@ -9,8 +9,11 @@ which refuse tensors that do: :func:`repro_torch.kernels.refuse_grad`).
 ``Model.loss_fn`` runs without the kernels on every device, as the JAX
 package trains with ``use_kernel=False``: no kernel launches in a step.
 
-The int8 cross-pod gradient compression and the pjit shardings need the
-port's sharding, ROADMAP.md Queue 1 item 8.
+A step exposes its two halves, ``grads_of(params, batch) -> (loss,
+grads)`` and ``update(params, grads, opt_state, grad_norm=None)``, so
+:func:`repro_torch.distributed.sharding.sharded_step` can run it over a
+mesh (the JAX package's ``jax.jit(step, in_shardings=...)``, with
+:func:`train_state_shardings`).
 """
 from __future__ import annotations
 
@@ -18,12 +21,10 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.sharding import batch_sharding, param_sharding
 from repro_torch.models.registry import Model
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.pytree import tree_leaves, tree_unflatten
-
-_NO_SHARDING = ("needs the port's sharding (repro_torch.distributed), which is not "
-                "ported yet: ROADMAP.md Queue 1 item 8")
 
 
 def loss_and_grads(loss_fn: Callable, params, batch):
@@ -51,9 +52,12 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *, microbatches: int = 1
     updates the parameters and the optimizer state in place
     (:func:`~repro_torch.optim.adamw.adamw_update`), as the JAX train driver
     donates them to its jitted step.
+
+    ``compress_pod_grads``: the JAX step imports ``int8_pod_allreduce``,
+    which ``repro.distributed.compression`` does not define, so it raises
+    ImportError at its first call; the port's step does the same (the
+    scheme itself is :mod:`repro_torch.distributed.compression`).
     """
-    if compress_pod_grads:
-        raise NotImplementedError("compress_pod_grads " + _NO_SHARDING)
     loss_fn = model.loss_fn
 
     def grads_of(params, batch):
@@ -73,20 +77,36 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *, microbatches: int = 1
         inv = 1.0 / microbatches
         return loss_acc * inv, tree_unflatten(params, [g * inv for g in g_acc])
 
+    def update(params, grads, opt_state, grad_norm=None):
+        if compress_pod_grads:
+            from repro_torch.distributed.compression import int8_pod_allreduce
+            grads, opt_state = int8_pod_allreduce(grads, opt_state)
+        return adamw_update(params, grads, opt_state, opt_cfg, donate=donate,
+                            grad_norm=grad_norm)
+
     def train_step(params, opt_state, batch):
         batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
         loss, grads = grads_of(params, batch)
-        params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg,
-                                             donate=donate)
+        params, opt_state, om = update(params, grads, opt_state)
         return params, opt_state, {"loss": loss, **om}
 
+    train_step.grads_of = grads_of
+    train_step.update = update
     return train_step
 
 
 def train_state_shardings(model: Model, mesh, batch_abstract):
-    """The JAX package's ``(param_sh, opt_sh, batch_sh)`` for pjit: not on
-    one card."""
-    raise NotImplementedError("train_state_shardings " + _NO_SHARDING)
+    """``(param_sh, opt_sh, batch_sh)`` trees of
+    :class:`~repro_torch.distributed.sharding.NamedSharding` for
+    :func:`~repro_torch.distributed.sharding.sharded_step`: the parameters
+    under the rules, AdamW's ``m``/``v`` mirroring them with ``step``
+    replicated, and the batch (``batch_abstract``: any tree of tensors,
+    meta tensors or arrays; only shapes are read)."""
+    p_abs = model.abstract_params()
+    p_sh = param_sharding(p_abs, mesh)
+    o_sh = param_sharding(adamw_init(p_abs), mesh)  # m/v mirror params; step replicates
+    b_sh = batch_sharding(batch_abstract, mesh)
+    return p_sh, o_sh, b_sh
 
 
 class TrainState:

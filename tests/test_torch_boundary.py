@@ -17,10 +17,11 @@ COPIED = ("core/__init__.py", "core/scaling", "core/autoscaler", "core/convergen
           "core/simulator", "core/chaos", "core/signals", "utils",
           "core/elastic/__init__.py", "core/elastic/cluster.py", "data/pipeline.py")
 # The one port-written file under core/: the JAX module rebuilds a device
-# mesh and reshards through jax and repro.distributed.sharding, which the
-# port does not have yet (ROADMAP.md Queue 1 item 8).  Its one-card stand-in
-# keeps the five names the JAX module exports, so core/elastic/__init__.py
-# stays a verbatim copy.
+# mesh and reshards through jax and repro.distributed.sharding; the port's
+# rebuilds a torch DeviceMesh and reshards through
+# repro_torch.distributed.sharding.  It keeps the five names the JAX module
+# exports, so core/elastic/__init__.py stays a verbatim copy (the MoE
+# expert-parallel layout that remains is ROADMAP.md Queue 1 item 8b).
 PORT_WRITTEN = ("core/elastic/remesh.py",)
 
 

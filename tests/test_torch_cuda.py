@@ -1043,3 +1043,100 @@ def test_train_step_on_card_matches_cpu(arch):
         torch.testing.assert_close(g_gpu[key] / scale, ref / scale, atol=1e-4, rtol=1e-4,
                                    msg=lambda m, key=key: f"{key}: {m}")
     np.testing.assert_allclose(c_gpu, c_cpu, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------------
+# on the card: the sharded step at world size 1, and the CLI's resume
+# ---------------------------------------------------------------------------------
+
+def _run_child(argv, tmp_path, *, timeout=600, **env_over):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), **env_over}
+    env.pop("REPRO_SUPERVISED", None)
+    p = subprocess.run([sys.executable] + argv, capture_output=True, text=True, env=env,
+                       timeout=timeout, cwd=str(tmp_path))
+    assert p.returncode == 0, f"stdout:\n{p.stdout[-3000:]}\nstderr:\n{p.stderr[-6000:]}"
+    return p.stdout
+
+
+@pytest.mark.cuda
+def test_nccl_world_size_1_sharded_step_equals_plain_step(tmp_path):
+    """NCCL at world size 1 (a ``file://`` store) and a 1x1 ("data",
+    "model") mesh, in a child process (no process group in this one):
+    three sharded steps of the smollm-135m smoke config equal three plain
+    steps from the same state bit for bit (losses, parameters, ``v``); the
+    gathers and reductions are identities at one rank, and deterministic
+    index backwards fix the embedding gradient's order."""
+    import json
+    from pathlib import Path
+    require_cuda()
+    args = {"world": 1, "backend": "nccl", "arch": "smollm-135m",
+            "store": str(tmp_path / "store"), "out": str(tmp_path / "out.json")}
+    (tmp_path / "args.json").write_text(json.dumps(args))
+    ranks = Path(__file__).resolve().parent / "_torch_dist_ranks.py"
+    _run_child([str(ranks), "nccl_step", str(tmp_path / "args.json")], tmp_path,
+               timeout=300)
+    r = json.loads((tmp_path / "out.json").read_text())
+    assert r["sharded"] == r["plain"], r
+    assert r["params_equal"] and r["v_equal"], r
+
+
+@pytest.mark.cuda
+def test_train_cli_resume_is_bit_exact_on_the_card(tmp_path):
+    """``launch/train.py --supervise --simulate-failure 5`` on the card
+    (smollm-135m ``CONFIG``, B 4 x S 128, a checkpoint every 2 steps)
+    repeats the uninterrupted run's loss at every step, bit for bit
+    (``--loss-log``: the last record of each step)."""
+    require_cuda()
+    common = ["-m", "repro_torch.launch.train", "--arch", "smollm-135m", "--device", "cuda",
+              "--steps", "8", "--batch", "4", "--seq", "128", "--ckpt-every", "2",
+              "--log-every", "1"]
+    logs = {}
+    for name, extra in (("plain", []), ("resumed", ["--supervise", "--simulate-failure", "5"])):
+        out = _run_child(common + extra + ["--ckpt-dir", str(tmp_path / f"ckpt-{name}"),
+                                           "--loss-log", str(tmp_path / f"{name}.log")],
+                         tmp_path)
+        last = {}
+        for line in (tmp_path / f"{name}.log").read_text().split("\n"):
+            if line:
+                step, loss = line.split()
+                last[int(step)] = float.fromhex(loss)
+        logs[name] = (last, out)
+    (plain, _), (resumed, out) = logs["plain"], logs["resumed"]
+    assert "SIMULATED FAILURE at step 5" in out and "resumed from step" in out, out
+    assert sorted(plain) == list(range(8)) and resumed == plain, (plain, resumed)
+
+
+@pytest.mark.cuda
+def test_restore_resharded_holds_only_its_blocks_on_the_card(tmp_path):
+    """``restore_resharded`` of smollm-135m ``CONFIG`` (bf16, full width)
+    onto a (2, 4) mesh on the card, as rank 6 of 8 under the fake backend,
+    in a child process: the blocks equal the whole leaves' blocks, and the
+    restore's peak device memory is this rank's blocks (within 1% and
+    8 MiB), less than half the whole tree: the file is read into host
+    memory and cut there."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    require_cuda()
+    path = save_checkpoint(str(tmp_path / "ckpt.npz"),
+                           build_model(get_config("smollm-135m"), device="cpu").init_params(0),
+                           step=2)
+    args = {"arch": "smollm-135m", "smoke": False, "device": "cuda", "ckpt": path,
+            "out": str(tmp_path / "out.json")}
+    (tmp_path / "args.json").write_text(json.dumps(args))
+    ranks = Path(__file__).resolve().parent / "_torch_dist_ranks.py"
+    _run_child([str(ranks), "fake_restore", str(tmp_path / "args.json")], tmp_path,
+               timeout=300)
+    r = json.loads((tmp_path / "out.json").read_text())
+    print(r)
+    assert r["coordinate"] == [1, 2] and r["equal"] and r["split_leaves"] > 0, r
+    assert r["peak_bytes"] <= 1.01 * r["local_bytes"] + 8 * 2**20, r
+    assert r["local_bytes"] < r["whole_bytes"] / 2, r

@@ -35,6 +35,7 @@ from repro_torch.checkpoint import load_checkpoint
 from repro_torch.checkpoint.store import _flatten
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.data import DataConfig, TokenStream
+from repro_torch.distributed import AbstractMesh
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_lr
 from repro_torch.optim.adamw import global_norm
@@ -275,11 +276,22 @@ def test_step_returns_parameters_without_grad(tmp_path):
 
 
 def test_sharded_training_waits_for_the_port_sharding(tmp_path):
-    *_, tm, _ = _pair("smollm-135m", tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_train_step(tm, AdamWConfig(), compress_pod_grads=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_state_shardings(tm, None, None)
+    """``compress_pod_grads=True`` builds a step that raises ImportError at
+    its first call, naming the function the JAX step imports and
+    ``repro.distributed.compression`` lacks; ``train_state_shardings``
+    gives the rules' shardings on a mesh (an ``AbstractMesh`` here: no
+    process group in this process)."""
+    *_, tm, tp = _pair("smollm-135m", tmp_path)
+    step = make_train_step(tm, AdamWConfig(), compress_pod_grads=True)
+    with pytest.raises(ImportError, match="int8_pod_allreduce"):
+        step(tp, adamw_init(tp), _batch(tm.cfg))
+    mesh = AbstractMesh((4, 3), ("data", "model"))
+    p_sh, o_sh, b_sh = train_state_shardings(tm, mesh, _batch(tm.cfg, b=8))
+    assert p_sh["embed"].spec == (None, None)             # vocab 256 % 3: replicated
+    assert p_sh["blocks"][0]["wq"].spec == (None, "model")
+    assert o_sh["m"]["blocks"][1]["wo"].spec == p_sh["blocks"][1]["wo"].spec
+    assert o_sh["step"].spec == ()
+    assert b_sh["tokens"].spec == (("data",), None)
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "olmoe-1b-7b", "mamba2-1.3b",

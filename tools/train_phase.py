@@ -1,14 +1,17 @@
-"""Run ``chip_smoke.py``'s phase 10 alone: training on the card.
+"""Run ``chip_smoke.py``'s phases 10 and 11 alone: training on the card.
 
-    python3 tools/train_phase.py [--parts a,b,c,d]
+    python3 tools/train_phase.py [--parts a,b,c,d,11]
 
 10a: the smoke configs of smollm-135m, mamba2-1.3b and whisper-small at
 float32, card against CPU (one step's loss and gradients, a 5-step curve);
 10b: smollm-135m ``CONFIG`` trained 30 steps at B 8 x S 512 with a
 train-state checkpoint after step 15, resumed from it in the same process;
 10c: qwen2.5-3b ``CONFIG`` 3 steps, mamba2-1.3b ``CONFIG`` 2 steps; 10d:
-whisper-small ``CONFIG`` prefill, 16 decode steps and one train step.
-Each part prints what ``chip_smoke.py`` prints for it and fails as it
+whisper-small ``CONFIG`` prefill, 16 decode steps and one train step;
+11: the sharded train step on a one-rank NCCL mesh (qwen2.5-3b at full
+width, 4 of 36 layers), ``restore_resharded``, compression, a
+provisioning delay, and the parameters restored onto a (2, 4) mesh as one
+rank under the fake backend.  Each part prints what ``chip_smoke.py`` prints for it and fails as it
 fails: no kernel may launch during a train step.  The card's name and
 power limit come first.  Needs one CUDA card.
 """
@@ -27,7 +30,7 @@ import chip_smoke  # noqa: E402  (this checkout's phase 10 and helpers)
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parts", default="a,b,c,d")
+    ap.add_argument("--parts", default="a,b,c,d,11")
     parts = set(ap.parse_args().parts.split(","))
     import torch
     if not torch.cuda.is_available():
@@ -54,6 +57,9 @@ def main() -> int:
         chip_smoke.train_wide(dev, counters)
     if "d" in parts:
         chip_smoke.whisper_full(dev, counters)
+    if "11" in parts:
+        with tempfile.TemporaryDirectory(prefix="sharded-") as tmp:
+            chip_smoke.sharded_train(dev, counters, tmp)
     chip_smoke.log(f"[train] parts {sorted(parts)} in {time.perf_counter() - t0:.1f} s")
     return 0
 
