@@ -123,7 +123,21 @@ Phases, each of which fails the run if it fails:
    with one copy's peak device memory; ``compress_allreduce_pod`` over a
    one-rank pod group exact; ``measure_provision_delay`` at dp 1, tp 1;
    then, under torch's fake backend, the parameters restored onto a (2, 4)
-   mesh as rank 6, holding only that rank's blocks on the card.
+   mesh as rank 6, holding only that rank's blocks on the card;
+12. the expert-parallel MoE (``distributed/moe_ep.py``) and the dry run
+   (``launch/dryrun.py``): 12a one MoE layer at full width, T 4 x 512,
+   olmoe-1b-7b ``CONFIG`` at 4 and 16 model ranks (EP) and mixtral-8x22b
+   ``CONFIG`` at 16 (TP: the hidden dim cut) and 4 (EP), every rank's
+   partial computed in this process with no collective and summed, held
+   against the one-device ``moe_ffn`` at f32 and bf16 (dropped pairs
+   equal), with each one's device ms; 12b the sharded step with the
+   expert-parallel mesh set on a one-rank NCCL mesh, olmoe-1b-7b at full
+   width and 4 of 16 layers, B 4 x S 512, 3 steps equal to 3 plain steps
+   bit for bit; 12c ``python -m repro_torch.launch.dryrun`` in child
+   processes on the host (meta tensors, fake backend; started before 12a)
+   for olmoe-1b-7b train_4k on both production meshes, mixtral-8x22b
+   decode_32k, mamba2-1.3b long_500k and qwen2.5-3b prefill_32k: every
+   record ``ok``.
 
 The second-to-last line of stdout is the ``kernels`` JSON record (the greedy
 epilogue's launches are phase 5b's plus phase 5c's; a record named
@@ -157,13 +171,14 @@ def log(msg: str) -> None:
 HOLD_CYCLES = 1_000_000         # ~0.5 ms of spinning at the H100's clocks
 
 
-def timed_ms(fn, *, reps: int = 20, flush=None) -> float:
+def timed_ms(fn, *, reps: int = 20, flush=None, hold: int = HOLD_CYCLES) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls, from CUDA events
     around each call; ``flush()`` (not timed) evicts the L2 cache before
     each call, as the serving loop finds it after the other layers ran.  A
-    spin kernel (``torch.cuda._sleep``) holds the stream before the start
-    event, so the host has enqueued ``fn``'s kernels before the clock
-    starts: the time is the device's, not the host's enqueue time."""
+    spin kernel (``torch.cuda._sleep``, ``hold`` cycles) holds the stream
+    before the start event, so the host has enqueued ``fn``'s kernels
+    before the clock starts: the time is the device's, not the host's
+    enqueue time, where the host enqueues them within the hold."""
     import torch
     for _ in range(3):
         fn()
@@ -171,7 +186,7 @@ def timed_ms(fn, *, reps: int = 20, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush()
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3076,6 +3091,292 @@ def fake_restore(cfg, path: str, step: int) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------------
+# phase 12: the expert-parallel MoE and the dry run
+# ---------------------------------------------------------------------------------
+
+EP_CASES = (("olmoe-1b-7b", 4), ("olmoe-1b-7b", 16), ("mixtral-8x22b", 16),
+            ("mixtral-8x22b", 4))          # (config, model ranks); EP where E % mp == 0
+EP_TOKENS = 4 * 512
+EP_F32_TOL = 1e-5               # 12a at f32: the summed partials, over the largest |output|
+EP_LAYERS = 4                   # 12b: olmoe-1b-7b's 16 layers cut for the step
+EP_HOLD_CYCLES = 100_000_000    # ~50 ms: 12a's host enqueues up to 16 bodies meanwhile
+DRYRUN_CELLS = (("olmoe-1b-7b", "train_4k", "both"), ("mixtral-8x22b", "decode_32k", "single"),
+                ("mamba2-1.3b", "long_500k", "single"), ("qwen2.5-3b", "prefill_32k", "single"))
+
+
+def dryrun_start(tmp: str) -> list:
+    """Phase 12c's children, one per cell of ``DRYRUN_CELLS``, started at
+    once: ``python -m repro_torch.launch.dryrun`` on the host (meta
+    tensors, the fake backend: no card), each into its own file."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1",
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for i, (arch, shape, mesh) in enumerate(DRYRUN_CELLS):
+        out = os.path.join(tmp, f"dryrun-{i}.jsonl")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", mesh, "--out", out]
+        procs.append((subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), out,
+                      time.perf_counter()))
+    return procs
+
+
+def dryrun_finish(procs) -> None:
+    """Phase 12c: wait for the children (300 s each at most, then killed),
+    gate every record on ``status`` ``ok`` and print its per-rank argument
+    bytes, FLOPs, collective bytes, fit and dominant roofline term."""
+    failures = []
+    for proc, out, t0 in procs:
+        try:
+            text, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            failures.append(f"{out}: timed out")
+        secs = time.perf_counter() - t0
+        recs = [json.loads(line) for line in Path(out).read_text().splitlines()] \
+            if os.path.exists(out) else []
+        if proc.returncode != 0 or not recs:
+            failures.append(f"{out}: exit {proc.returncode}: {text[-1500:]}")
+        for r in recs:
+            ok = r.get("status") == "ok"
+            if not ok:
+                failures.append(f"{r['arch']} {r['shape']} {r['mesh']}: {r.get('error')}")
+                log(f"[dryrun] {r['arch']} {r['shape']} {r['mesh']}: {r.get('status')} "
+                    f"{r.get('error', '')[:300]}: FAILED")
+                continue
+            m, c = r["memory"], r["collectives"]
+            peak = "n/a" if m["peak_bytes"] is None else f"{m['peak_bytes'] / 1e9:.3f}"
+            log(f"[dryrun] {r['arch']} {r['shape']} {r['mesh']} ({r['devices']} fake ranks, "
+                f"{r['wall_s']} s; child {secs:.1f} s): argument {m['argument_bytes'] / 1e9:.3f} "
+                f"GB, peak {peak} GB, fits {r['fits']}; flops {r['cost']['flops']:.4e}; collective bytes "
+                f"{c['total_bytes']:.4e} {c['count_by_kind']}; dominant "
+                f"{r['roofline']['dominant']}: ok")
+    if failures:
+        raise AssertionError("dry run failed: " + "; ".join(failures))
+
+
+def ep_blocks(params: dict, r: int, mp: int, ep: bool) -> dict:
+    """Rank r's contiguous blocks of a whole MoE layer: the expert dim cut
+    (EP) or the FFN hidden dim (TP)."""
+    E, _, F_ = params["w_gate"].shape
+    if ep:
+        n = E // mp
+        cut = {k: params[k][r * n:(r + 1) * n] for k in ("w_gate", "w_up", "w_down")}
+    else:
+        n = F_ // mp
+        cut = {"w_gate": params["w_gate"][:, :, r * n:(r + 1) * n],
+               "w_up": params["w_up"][:, :, r * n:(r + 1) * n],
+               "w_down": params["w_down"][:, r * n:(r + 1) * n]}
+    return {"router": params["router"], **{k: v.contiguous() for k, v in cut.items()}}
+
+
+def ep_bodies(dev) -> None:
+    """Phase 12a: one MoE layer of each ``EP_CASES`` config at full width
+    (``CONFIG``'s widths, capacity factor and top-k), seeded weights whose
+    values are bf16-representable, the router float32, ``EP_TOKENS`` tokens;
+    every rank's partial (``moe_ep._local_moe`` in EP mode,
+    ``_local_moe_tp`` in TP mode) computed in this process, with no
+    collective, and summed in rank order in the input's dtype (the
+    partials are cast before the sum, as the JAX body casts them before its
+    psum).  Gates: at f32, the sum within ``EP_F32_TOL`` of the one-device
+    ``moe_ffn``'s largest magnitude; at bf16, the sum's error against the
+    f32 layer of the same values within the one-device bf16 layer's error
+    plus :func:`bf16_tol` (a TP sum adds up to mp - 1 bf16 roundings; its
+    distance to the bf16 layer is printed beside ``bf16_tol``); the dropped
+    pairs of every rank's plan equal to the one-device layer's.  Prints the
+    device ms of the one-device layer and of the partials' sum, with the
+    card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import moe_ep
+    from repro_torch.models import moe
+
+    failures = []
+    for arch in dict(EP_CASES):
+        cfg = get_config(arch).moe
+        d, E, F_ = get_config(arch).d_model, cfg.n_experts, cfg.d_expert
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        rn = lambda *s, scale: (torch.randn(s, generator=gen, device=dev) * scale).to(
+            torch.bfloat16).float()
+        w32 = {"router": rn(d, E, scale=d ** -0.5), "w_gate": rn(E, d, F_, scale=d ** -0.5),
+               "w_up": rn(E, d, F_, scale=d ** -0.5), "w_down": rn(E, F_, d, scale=F_ ** -0.5)}
+        x32 = rn(EP_TOKENS, d, scale=1.0)
+        with torch.no_grad():
+            ref32, _ = moe.moe_ffn(x32, w32, cfg)
+        scale = ref32.abs().max().item()
+        for mp in (m for a, m in EP_CASES if a == arch):
+            ep = E % mp == 0
+            body = moe_ep._local_moe if ep else moe_ep._local_moe_tp
+            for dt in (torch.float32, torch.bfloat16):
+                w = {k: v if k == "router" else v.to(dt) for k, v in w32.items()}
+                x = x32.to(dt)
+                blocks = [ep_blocks(w, r, mp, ep) for r in range(mp)]
+
+                def one():
+                    return moe.moe_ffn(x, w, cfg, aux=False)[0]
+
+                def summed():
+                    total = None
+                    for r in range(mp):
+                        out = body(x, blocks[r], cfg, r, mp, aux=False)[0]
+                        total = out if total is None else total + out
+                    return total
+
+                with torch.no_grad():
+                    with moe_drops() as drops_one:
+                        ref = one()
+                    with moe_drops() as drops_ranks:
+                        got = summed()
+                    per_rank = [int(n) for n in drops_ranks._drops]
+                    n_one = drops_one.dropped()
+                    ms_one = timed_ms(one, reps=3, hold=EP_HOLD_CYCLES)
+                    ms_sum = timed_ms(summed, reps=3, hold=EP_HOLD_CYCLES)
+                err_one = (got.float() - ref.float()).abs().max().item()
+                if dt == torch.float32:
+                    ok = err_one <= EP_F32_TOL * scale
+                    gate = f"{err_one / scale:.2e} of the largest |output| (<= {EP_F32_TOL:g})"
+                else:
+                    e_sum = (got.float() - ref32).abs().max().item()
+                    e_ref = (ref.float() - ref32).abs().max().item()
+                    tol = bf16_tol(ref32)
+                    ok = e_sum <= e_ref + tol
+                    gate = (f"against the f32 layer {e_sum / scale:.2e}, the bf16 layer's "
+                            f"{e_ref / scale:.2e} (+ bf16_tol {tol / scale:.0e}); against the "
+                            f"bf16 layer {err_one / scale:.2e}")
+                ok &= per_rank == [n_one] * mp and torch.isfinite(got).all().item()
+                log(f"[moe_ep] {arch} {str(dt).removeprefix('torch.')} mp {mp} "
+                    f"{'EP' if ep else 'TP'} ({E // mp if ep else E} experts of hidden "
+                    f"{F_ if ep else F_ // mp} a rank), T {EP_TOKENS}: partials summed "
+                    f"{gate}; dropped pairs one-device {n_one}, each rank's plan "
+                    f"{sorted(set(per_rank))}; device ms one-device {ms_one:.3f}, sum of "
+                    f"{mp} partials {ms_sum:.3f}: {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    failures.append(f"{arch} mp {mp} {dt}")
+                del blocks, w, x
+        del w32, x32, ref32
+        torch.cuda.empty_cache()
+    log(f"[moe_ep] card {card_line()}")
+    if failures:
+        raise AssertionError("expert-parallel bodies failed: " + "; ".join(failures))
+
+
+def ep_sharded_train(dev, counters, tmp: str) -> None:
+    """Phase 12b: NCCL at world size 1 from a ``file://`` store, a 1x1
+    ("data", "model") mesh set as the expert-parallel mesh
+    (``moe_ep.set_ep_mesh``), and olmoe-1b-7b ``CONFIG`` (bf16, full width,
+    ``EP_LAYERS`` of its 16 layers) at B 4 x S 512: 3 ``sharded_step``s,
+    the experts kept as the rank's blocks and every MoE layer through
+    ``moe_ffn_ep``, against 3 plain steps from the same state, in place,
+    both with deterministic index backwards (gate: losses, parameters and
+    moments equal bit for bit: at one rank every sum over ``model`` is an
+    identity; ``moe_ffn_ep`` ran in every MoE layer of each EP step's
+    forward, and again in its recompute under ``remat``).  No
+    kernel launches in a train step.  Prints ms a step for both and the
+    peak memory.  The EP mesh is unset and the process group destroyed in
+    a ``finally``."""
+    import dataclasses
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import moe_ep
+    from repro_torch.distributed.sharding import place, shard_params, sharded_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.training import make_train_step, train_state_shardings
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=EP_LAYERS)
+    B, S, n = 4, 512, 3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                            rank=0, world_size=1)
+    plain_ep, calls = moe_ep.moe_ffn_ep, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return plain_ep(*a, **kw)
+
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        model = build_model(cfg)                               # on the GPU
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=n),
+                               donate=True)
+        batches = train_batches(cfg, n, B, S, SEED + 3)
+        p_sh, o_sh, b_sh = train_state_shardings(model, mesh, batches[0])
+        host = tree_map(lambda t: t.cpu(), model.init_params(SEED))
+        run = sharded_step(step, (p_sh, o_sh, b_sh))
+
+        def train(fn, params, opt, what):
+            losses, times = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, met = no_launch_during(counters, what,
+                                                    lambda: fn(params, opt, b))
+                losses.append(float(met["loss"]))
+                times.append((time.perf_counter() - t0) * 1e3)
+            return params, opt, losses, times
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                params = tree_map(lambda t: t.to(dev, copy=True), host)
+                p1, o1, l1, t1 = train(step, params, adamw_init(params), "12b plain")
+                params = tree_map(lambda t: t.to(dev, copy=True), host)
+                sp = shard_params(params, mesh)
+                so = tree_map(place, adamw_init(params), o_sh)
+                del params
+                moe_ep.set_ep_mesh(mesh)
+                moe_ep.moe_ffn_ep = counted
+                sp, so, l2, t2 = train(run, sp, so, "12b EP sharded")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            moe_ep.set_ep_mesh(None)
+            moe_ep.moe_ffn_ep = plain_ep
+        same_p = all(torch.equal(a.full_tensor(), b)
+                     for a, b in zip(tree_leaves(sp), tree_leaves(p1)))
+        same_o = all(torch.equal(a.full_tensor(), b)
+                     for a, b in zip(tree_leaves(so), tree_leaves(o1)))
+        want_calls = n * EP_LAYERS * (2 if cfg.remat != "none" else 1)   # remat reruns
+        took_ep = len(calls) == want_calls
+        ok = l1 == l2 and same_p and same_o and took_ep
+        log(f"[moe_ep] {cfg.name} bf16 ({cfg.n_layers} of 16 layers, d {cfg.d_model}, "
+            f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}) B {B} x S {S} on a 1x1 NCCL "
+            f"mesh set as the EP mesh: plain losses {l1}, ms {[round(x, 1) for x in t1]}; EP "
+            f"sharded losses {l2}, ms {[round(x, 1) for x in t2]}; moe_ffn_ep calls "
+            f"{len(calls)} (want {want_calls}: each layer's forward, again under remat); losses "
+            f"equal {l1 == l2}, parameters equal "
+            f"{same_p}, moments equal {same_o}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; card {card_line()}: "
+            f"{'ok' if ok else 'FAILED'}")
+        del sp, so, p1, o1, model
+    finally:
+        dist.destroy_process_group()
+    if not ok:
+        raise AssertionError("EP sharded step != plain step")
+
+
+def moe_ep_phase(dev, counters) -> None:
+    """Phase 12: the dry run's children start first and run on the host
+    while 12a and 12b use the card; then 12c reads them."""
+    import torch
+    with tempfile.TemporaryDirectory(prefix="moe-ep-") as tmp:
+        procs = dryrun_start(tmp)
+        try:
+            ep_bodies(dev)
+            torch.cuda.empty_cache()
+            ep_sharded_train(dev, counters, tmp)
+        finally:
+            dryrun_finish(procs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3191,6 +3492,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="sharded-") as tmp:
         sharded_train(dev, all_counters, tmp)
     log(f"[sharded] phase 11 in {time.perf_counter() - t0:.1f} s")
+
+    # the expert-parallel MoE on the card, and the dry run on the host
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_ep_phase(dev, all_counters)
+    log(f"[moe_ep] phase 12 in {time.perf_counter() - t0:.1f} s")
 
     log(f"[done] greedy_epilogue launches: {launches['greedy_epilogue']} in phase 5b, "
         f"{ssm_launches['greedy_epilogue']} in phase 5c")

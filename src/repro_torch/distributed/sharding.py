@@ -37,7 +37,10 @@ The sharded step (:func:`sharded_step`) is the counterpart of
 layout differs from what XLA picks under pjit: each rank gathers the
 parameters whole, runs the unchanged ``Model.loss_fn`` on its data shard
 of the batch, and the gradients are averaged over the data axes and cut to
-the rules' placements; only the AdamW update runs on the shards.  The
+the rules' placements; only the AdamW update runs on the shards.  Under an
+expert-parallel mesh (``moe_ep.set_ep_mesh``) the MoE experts are the
+exception: they stay the rank's blocks, and ``moe_ep.moe_ffn_ep`` sums the
+ranks' partial outputs over ``model``.  The
 port's model functions are plain tensor code, and DTensor has no sharding
 rule for some of their ops (the embedding's gather mixes a plain index
 tensor with a DTensor table), so the model sees plain tensors.  The
@@ -61,6 +64,7 @@ from torch.distributed.tensor import (
     distribute_tensor,
 )
 
+from repro_torch.distributed.moe_ep import active_ep_mesh
 from repro_torch.pytree import tree_leaves, tree_map
 
 #: the keys whose value is a list of per-layer dictionaries in the port (one
@@ -349,16 +353,21 @@ def _local(x, sharding: NamedSharding) -> torch.Tensor:
     return place(torch.as_tensor(x), sharding).to_local()
 
 
-def _avg(x: torch.Tensor, mesh, axes: tuple[str, ...], placements=None) -> DTensor:
+def _avg(x: torch.Tensor, mesh, axes: tuple[str, ...], placements=None, *,
+         block: bool = False) -> DTensor:
     """``x``, each rank's own, as its mean over the mesh axes ``axes``
     (``Partial("avg")`` on those mesh dims), redistributed to
-    ``placements`` (``Replicate()`` on every mesh dim where None)."""
-    partial = [Partial("avg") if a in axes else Replicate() for a in mesh.mesh_dim_names]
+    ``placements`` (``Replicate()`` on every mesh dim where None).  With
+    ``block``, ``x`` is the rank's block under ``placements`` (which shard
+    it on no axis in ``axes``), not a whole tensor."""
+    partial = [Partial("avg") if a in axes else (placements[i] if block else Replicate())
+               for i, a in enumerate(mesh.mesh_dim_names)]
     return DTensor.from_local(x, mesh, partial, run_check=False).redistribute(
         mesh, placements or [Replicate()] * mesh.ndim)
 
 
-def data_mean(loss, grads, local_batch, mesh, axes: tuple[str, ...], shardings=None):
+def data_mean(loss, grads, local_batch, mesh, axes: tuple[str, ...], shardings=None,
+              blocks=None):
     """``(loss, grads)``, each rank's from its shard ``local_batch`` of the
     batch, as the mean over the shards on the mesh axes ``axes``: the mean
     over the whole batch those shards make up, as under pjit.
@@ -370,7 +379,10 @@ def data_mean(loss, grads, local_batch, mesh, axes: tuple[str, ...], shardings=N
     where the shards' masks differ.  ``loss`` comes back a plain float32
     0-d tensor, equal on every rank; ``grads`` DTensors under
     ``shardings`` (a tree of :class:`NamedSharding`), or, where None, plain
-    tensors, whole and equal on every rank."""
+    tensors, whole and equal on every rank.  ``blocks``: a tree of bools
+    congruent with ``grads`` (with ``shardings``), True where the gradient
+    is already the rank's block under its sharding (the expert leaves of
+    the expert-parallel step) rather than the whole tensor."""
     loss = loss.float().reshape(())
     sizes = _sizes(mesh)
     if math.prod(sizes[a] for a in axes) > 1 and "targets" in local_batch:
@@ -383,7 +395,10 @@ def data_mean(loss, grads, local_batch, mesh, axes: tuple[str, ...], shardings=N
     loss = _avg(loss, mesh, axes).to_local()
     if shardings is None:
         return loss, tree_map(lambda g: _avg(g, mesh, axes).to_local(), grads)
-    return loss, tree_map(lambda g, s: _avg(g, mesh, axes, s.placements), grads, shardings)
+    if blocks is None:
+        blocks = tree_map(lambda s: False, shardings)
+    return loss, tree_map(lambda g, s, b: _avg(g, mesh, axes, s.placements, block=b),
+                          grads, shardings, blocks)
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -409,23 +424,44 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sums.sum())
 
 
+def _expert_leaf(names: tuple) -> bool:
+    """Whether the leaf at dictionary path ``names`` is a MoE expert weight."""
+    return "moe" in names and names[-1] in ("w_gate", "w_up", "w_down")
+
+
 def sharded_loss_and_grads(step, params, batch, shardings):
     """``(loss, grads)`` of one sharded step: each rank takes its data shard
     of ``batch``, gathers ``params`` whole (``full_tensor``), runs the
     unchanged ``step.grads_of`` (``Model.loss_fn`` through autograd, with
     its microbatches), and :func:`data_mean` over the data axes gives the
     whole batch's loss and the gradients under the parameters' placements.
-    A MoE layer routes, and fills its capacity, over one shard's tokens
-    (the JAX package routes over the whole batch; its expert-parallel
-    layout is ROADMAP.md Queue 1 item 8b).  ``shardings``: ``(param_sh,
-    batch_sh)`` trees of :class:`NamedSharding`."""
+    ``shardings``: ``(param_sh, batch_sh)`` trees of :class:`NamedSharding`.
+
+    Where the MoE layers route: without an expert-parallel mesh, every
+    leaf is gathered whole, and each MoE layer routes, and fills its
+    capacity, over the rank's data shard (``moe.moe_ffn`` on the shard's
+    tokens: the JAX package under pjit routes over the whole batch).  With
+    one (``moe_ep.set_ep_mesh``, the JAX switch ``REPRO_MOE_EP``), the MoE
+    expert leaves (w_gate, w_up, w_down) stay the rank's blocks under the
+    rules (the expert dim on ``model``, or in TP mode the FFN hidden dim),
+    every other leaf is gathered whole, and ``moe_ep.moe_ffn_ep`` routes
+    over the data shard's tokens as the JAX branch does; the expert
+    gradients come back as the rank's blocks, averaged over the data axes
+    only."""
     p_sh, b_sh = shardings
     mesh = tree_leaves(p_sh)[0].mesh
     local_batch = tree_map(_local, batch, b_sh)
-    whole = tree_map(lambda p: p.full_tensor() if isinstance(p, DTensor) else p, params)
+    ep_mesh = active_ep_mesh()
+    if ep_mesh is not None and ep_mesh is not mesh:
+        raise ValueError("the expert-parallel mesh (moe_ep.set_ep_mesh) is not the step's "
+                         "mesh: set the mesh the parameters are placed on")
+    ep = ep_mesh is not None
+    blocks = _walk(lambda names, s, n: ep and _expert_leaf(names), p_sh)
+    whole = tree_map(lambda p, b: p.to_local() if b else
+                     (p.full_tensor() if isinstance(p, DTensor) else p), params, blocks)
     loss, grads = step.grads_of(whole, local_batch)
     del whole
-    return data_mean(loss, grads, local_batch, mesh, data_axes(mesh), p_sh)
+    return data_mean(loss, grads, local_batch, mesh, data_axes(mesh), p_sh, blocks)
 
 
 def sharded_step(step: Callable, in_shardings) -> Callable:
@@ -442,7 +478,13 @@ def sharded_step(step: Callable, in_shardings) -> Callable:
     :func:`sharded_loss_and_grads`; their global norm, which drives the
     clipping, is :func:`global_norm` over every shard; then ``step.update``
     (AdamW, in place where the step donates) runs on each rank's shards.
-    The metrics are plain tensors, equal on every rank."""
+    The metrics are plain tensors, equal on every rank.
+
+    The forward and backward see every parameter gathered whole, except,
+    under an expert-parallel mesh (``moe_ep.set_ep_mesh``), the MoE expert
+    leaves (w_gate, w_up, w_down), which stay sharded on ``model``
+    throughout: the rank computes with its block, and its gradient and
+    AdamW update are the block's (:func:`sharded_loss_and_grads`)."""
     p_sh, _, b_sh = in_shardings
 
     def run(params, opt_state, batch):

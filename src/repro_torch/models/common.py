@@ -72,6 +72,15 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run the 500k-token long-context decode shape?"""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        if self.window is not None or self.global_every is not None:
+            return True   # SWA / mostly-local attention
+        return False
+
     def param_count(self) -> int:
         """Analytic parameter count (for 6ND roofline math)."""
         d, L = self.d_model, self.n_layers

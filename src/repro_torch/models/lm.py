@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import moe_ep
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention_mixed, decode_attention_paged,
 )
@@ -132,13 +133,21 @@ def _project_qkv(x, bp, cfg: ModelConfig):
 
 
 def _ffn(h, bp, cfg: ModelConfig, *, aux: bool = False):
-    """The block's feed-forward on h (B, S, d) -> (out, aux loss): the MoE
-    layer over all B * S tokens at once (routing and capacity see the whole
-    batch, idle rows included, as in the JAX package), else the gated MLP.
-    The load-balance loss is computed only with ``aux`` (only
-    :func:`forward` returns it), else it is 0.0.  The JAX package's
-    expert-parallel branch (``moe_ep``) is ROADMAP.md Queue 1 item 8b."""
+    """The block's feed-forward on h (B, S, d) -> (out, aux loss), the gated
+    MLP or the MoE layer.  The MoE layer takes the JAX package's branch:
+    with an expert-parallel mesh (``moe_ep.set_ep_mesh``, a ``model`` axis,
+    ``REPRO_MOE_EP`` unset or ``1``) :func:`moe_ep.moe_ffn_ep`, which routes
+    and fills capacity over the rank's tokens (its data shard) with the
+    experts on their ranks; else :func:`moe_ffn` over all B * S tokens at
+    once (idle rows included): the whole batch on one device, the rank's
+    data shard in the sharded step, which gathers the experts whole.  The
+    load-balance loss is computed only with ``aux`` (only :func:`forward`
+    returns it), else it is 0.0."""
     if cfg.moe:
+        mesh = moe_ep.active_ep_mesh()
+        if mesh is not None:
+            out, loss = moe_ep.moe_ffn_ep(h, bp["moe"], cfg.moe, mesh, aux=aux)
+            return out, loss if aux else 0.0
         B, S, d = h.shape
         out, loss = moe_ffn(h.reshape(B * S, d), bp["moe"], cfg.moe, aux=aux)
         return out.reshape(B, S, d), loss if aux else 0.0

@@ -5,9 +5,20 @@ Counterpart of ``repro.models.moe``, with its semantics exactly: the
 (token, expert) pairs are sorted by expert id (stable), each pair's rank
 within its expert group comes from the sorted run starts, and pairs beyond
 the expert capacity are dropped (their combine weight is zero, so the
-residual path carries them).  The JAX module's ``_constrain`` is a sharding
-hint for the expert-parallel layout and has no counterpart here yet: it
-comes with ``moe_ep`` (ROADMAP.md Queue 1 item 8b).
+residual path carries them).
+
+Where the layers route: without an expert-parallel mesh, :func:`moe_ffn`
+routes, and fills each expert's capacity, over every token the caller
+passes (one device: the whole batch; in the sharded step, which runs the
+model on each rank's data shard, that shard).  With one set
+(:func:`repro_torch.distributed.moe_ep.set_ep_mesh`, a mesh with a
+``model`` axis, and ``REPRO_MOE_EP`` unset or ``1``), ``lm._ffn`` takes
+:func:`~repro_torch.distributed.moe_ep.moe_ffn_ep` instead, which routes
+over each data shard's tokens, as the JAX package's ``moe_ep`` branch does.
+The JAX module's ``_constrain`` (sharding hints on the dispatch buffers,
+switched by ``REPRO_MOE_CONSTRAIN``) has its counterpart in that explicit
+layout: the experts stay on their ranks and the tokens on their data
+shard.  ``REPRO_MOE_CONSTRAIN`` has no effect in the port.
 
 Every product runs outside any hand-written kernel, as the JAX package runs
 its ``einsum``s outside any Pallas kernel.  The combine sums each token's
@@ -71,25 +82,43 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig, *, aux: bool = True):
     the load-balance loss (None in its place): serving discards it, and in
     eager PyTorch, unlike under jit, a dead result still costs launches."""
     T, D = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    C = capacity(T, cfg)
+    E = cfg.n_experts
     weights, experts, logits = router_topk(x, params["router"], cfg)
-    order, se, rank, keep = dispatch(experts, C, E)
+    out = expert_outputs(x, params, weights, experts, capacity(T, cfg), E)
+    return out.to(x.dtype), load_balance_loss(logits, experts, E) if aux else None
+
+
+def expert_outputs(x: torch.Tensor, params: dict, weights: torch.Tensor,
+                   experts: torch.Tensor, C: int, n_experts: int, *, first: int = 0,
+                   n_local: int | None = None) -> torch.Tensor:
+    """The float32 (T, D) combine of the routed pairs that go to experts
+    ``first .. first + n_local - 1`` (all ``n_experts`` where ``n_local`` is
+    None), through ``params``' w_gate / w_up (n_local, D, F) and w_down
+    (n_local, F, D): the whole layer's output without an expert split,
+    one rank's partial under one (:mod:`repro_torch.distributed.moe_ep`).
+    The plan is :func:`dispatch` over all ``n_experts``, so capacity and
+    drops are the whole layer's; a pair of another rank's expert adds 0."""
+    T, D = x.shape
+    k = experts.shape[1]
+    n_local = n_experts if n_local is None else n_local
+    order, se, rank, keep = dispatch(experts, C, n_experts)
+    if n_local != n_experts:
+        keep = keep & (se >= first) & (se < first + n_local)
     st = order // k                                   # each sorted pair's token
 
-    # ---- dispatch: the (E, C, D) expert inputs; a kept pair owns its slot, and
-    # every dropped pair writes into one spare row past the buffer (JAX adds a
-    # zero at (0, 0) instead, which leaves the buffer as this does)
-    slot = torch.where(keep, se * C + rank, E * C)
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    # ---- dispatch: the (n_local, C, D) expert inputs; a kept pair owns its
+    # slot, and every other pair writes into one spare row past the buffer (JAX
+    # adds a zero at (0, 0) instead, which leaves the buffer as this does)
+    slot = torch.where(keep, (se - first if first else se) * C + rank, n_local * C)
+    buf = torch.zeros((n_local * C + 1, D), dtype=x.dtype, device=x.device)
     buf[slot] = x[st]
-    buf = buf[:E * C].view(E, C, D)
+    buf = buf[:n_local * C].view(n_local, C, D)
 
-    # ---- expert FFN, batched over E
+    # ---- expert FFN, batched over the local experts
     h = F.silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf, params["w_up"])
-    y = torch.bmm(h, params["w_down"]).reshape(E * C, D)
+    y = torch.bmm(h, params["w_down"]).reshape(n_local * C, D)
 
-    # ---- combine: each pair's output scaled in f32, dropped pairs zero; a
+    # ---- combine: each pair's output scaled in f32, other pairs zero; a
     # token's k terms are added one by one in ascending expert order, the
     # order of the JAX scatter-add over the expert-sorted pairs
     contrib = torch.where(keep[:, None], y[torch.where(keep, slot, 0)].float(), 0.0)
@@ -102,7 +131,7 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig, *, aux: bool = True):
     out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
     for j in range(k):
         out = out + by_pair[:, j]
-    return out.to(x.dtype), load_balance_loss(logits, experts, E) if aux else None
+    return out
 
-
-__all__ = ["moe_ffn", "router_topk", "load_balance_loss", "capacity", "dispatch"]
+__all__ = ["moe_ffn", "router_topk", "load_balance_loss", "capacity", "dispatch",
+           "expert_outputs"]

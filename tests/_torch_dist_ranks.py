@@ -379,6 +379,115 @@ def _nccl_step(rank, args):
     return {"plain": plain, "sharded": sharded, "params_equal": same, "v_equal": same_v}
 
 
+def _moe_ep(rank, args):
+    """The expert-parallel sharded step (``moe_ep.set_ep_mesh(mesh)``)
+    against the plain sharded step on the same mesh and the one-device
+    step, each case's f32 smoke parameters from a JAX checkpoint and its
+    tokens (``targets = tokens``): losses, every gradient leaf, the
+    parameters and the second moments after one step.  The one-device
+    reference is the one-device step's gradients over each data shard's
+    rows, averaged (equal shares of targets): the batch mean when each
+    shard routes its own tokens, as both sharded steps do; at one data
+    rank, the one-device step itself.  Every MoE dispatch's dropped pairs
+    are counted."""
+    import numpy as np
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import moe_ep
+    from repro_torch.distributed.sharding import (
+        place,
+        shard_params,
+        sharded_loss_and_grads,
+        sharded_step,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, moe
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.pytree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.training import make_train_step, train_state_shardings
+
+    drops = []
+    plain_dispatch = moe.dispatch
+
+    def counting(experts, C, n_experts):
+        plan = plain_dispatch(experts, C, n_experts)
+        drops.append(int((~plan[3]).sum()))
+        return plan
+
+    moe.dispatch = counting
+    ep_calls = []
+    plain_ep = moe_ep.moe_ffn_ep
+
+    def counted_ep(*a, **kw):
+        ep_calls.append(1)
+        return plain_ep(*a, **kw)
+
+    moe_ep.moe_ffn_ep = counted_ep
+    result = {}
+    for arch, shape in args["cases"]:
+        mesh = make_mesh(tuple(shape), ("data", "model"), device="cpu")
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+        model = build_model(cfg, device="cpu")
+        params, _ = load_checkpoint(args["ckpt"][arch], model.abstract_params(), device="cpu")
+        toks = torch.from_numpy(np.load(args["tokens"][arch]))
+        batch = {"tokens": toks, "targets": toks}
+        step = make_train_step(model, AdamWConfig(lr=1e-3, total_steps=10))
+        p_sh, o_sh, b_sh = train_state_shardings(model, mesh, batch)
+        names = [k for k, _ in _named_leaves(params)]
+        runs = {}
+        for mode in ("plain", "ep"):
+            moe_ep.set_ep_mesh(mesh if mode == "ep" else None)
+            n0, e0 = len(drops), len(ep_calls)
+            sp = shard_params(params, mesh)
+            so = tree_map(place, adamw_init(params), o_sh)
+            loss, g = sharded_loss_and_grads(step, sp, batch, (p_sh, b_sh))
+            placed = all(a.placements == s.placements
+                         for a, s in zip(tree_leaves(g), tree_leaves(p_sh)))
+            g = [x.full_tensor() for x in tree_leaves(g)]
+            p2, o2, m2 = sharded_step(step, (p_sh, o_sh, b_sh))(sp, so, batch)
+            placed &= all(a.placements == b.placements
+                          for a, b in zip(tree_leaves((p2, o2)), tree_leaves((sp, so))))
+            runs[mode] = {"loss": float(loss), "metric": float(m2["loss"]), "grads": g,
+                          "params": [x.full_tensor() for x in tree_leaves(p2)],
+                          "v": [x.full_tensor() for x in tree_leaves(o2["v"])],
+                          "placed": placed, "drops": sum(drops[n0:]),
+                          "dispatches": len(drops) - n0, "ep_calls": len(ep_calls) - e0}
+        moe_ep.set_ep_mesh(None)
+        if rank != 0:
+            continue
+        n_data = shape[0]
+        rows = toks.shape[0] // n_data
+        n0 = len(drops)
+        parts = [step.grads_of(params, {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()})
+                 for d in range(n_data)]
+        ref_loss = sum(float(lo) for lo, _ in parts) / n_data
+        ref_g = [sum(gs) / n_data for gs in zip(*(tree_leaves(g) for _, g in parts))]
+        p1, o1, _ = step.update(params, tree_unflatten(params, ref_g), adamw_init(params))
+        ref = {"grads": ref_g, "params": tree_leaves(p1), "v": tree_leaves(o1["v"])}
+        res = {"loss": {"one": ref_loss, **{m: [r["loss"], r["metric"]] for m, r in runs.items()}},
+               "placed": {m: r["placed"] for m, r in runs.items()},
+               "drops": {m: r["drops"] for m, r in runs.items()} | {"one": sum(drops[n0:])},
+               "dispatches": {m: r["dispatches"] for m, r in runs.items()},
+               "ep_calls": {m: r["ep_calls"] for m, r in runs.items()}}
+        for against, other in (("one", ref), ("plain", runs["plain"])):
+            for what in ("grads", "params", "v"):
+                res[f"{what}_vs_{against}"] = {
+                    n: _scaled_err(a, b) for n, a, b in zip(names, runs["ep"][what], other[what])}
+        result[f"{arch}/{'x'.join(map(str, shape))}"] = res
+    moe.dispatch, moe_ep.moe_ffn_ep = plain_dispatch, plain_ep
+    return result
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, leaf) pairs in ``tree_leaves`` order; a list index is kept."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _named_leaves(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in _named_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
 # ---------------------------------------------------------------------------------
 # restore_resharded as one rank of a (2, 4) mesh, under the fake backend
 # ---------------------------------------------------------------------------------
@@ -437,9 +546,63 @@ def fake_restore(args) -> None:
     Path(args["out"]).write_text(json.dumps(result))
 
 
+# ---------------------------------------------------------------------------------
+# the dry run's small cells and the collective counter, under the fake backend
+# ---------------------------------------------------------------------------------
+
+def dryrun(args) -> None:
+    """``launch.dryrun.run_cell`` at the smoke configs' small cells (each
+    starts and destroys its own fake process group); the collectives of an
+    olmoe-smoke prefill on a (2, 4) mesh, one event each; and a scripted
+    sequence of every collective kind through ``collective_stats``."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ShapeSpec, get_smoke_config
+    from repro_torch.distributed.hlo_analysis import collective_stats
+    from repro_torch.launch.dryrun import build_cell, run_cell
+
+    out = {"cells": {}}
+    for name, (arch, kind, seq, batch, shape, axes) in args["cells"].items():
+        out["cells"][name] = run_cell(arch, ShapeSpec(name, seq, batch, kind), "small",
+                                      mesh_shape=shape, mesh_axes=axes,
+                                      cfg_override=get_smoke_config(arch))
+    out["skipped"] = run_cell("qwen2.5-3b", "long_500k", "single")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+        fn, cell_args = build_cell("olmoe-1b-7b", ShapeSpec("p", 32, 8, "prefill"), mesh,
+                                   cfg_override=get_smoke_config("olmoe-1b-7b"))
+        with torch.no_grad(), collective_stats() as st:
+            fn(*cell_args)
+        out["prefill_events"] = st.events
+        g = mesh.get_group("model")
+        with collective_stats() as st:
+            dist.all_reduce(torch.empty(3, 5), group=g)                       # 60 B
+            dist.all_gather_into_tensor(torch.empty(8, 3), torch.empty(2, 3),
+                                        group=g)                                # 96 B
+            dist.reduce_scatter_tensor(torch.empty(2, 3, dtype=torch.bfloat16),
+                                       torch.empty(8, 3, dtype=torch.bfloat16),
+                                       group=g)                                # 12 B
+            dist.all_to_all_single(torch.empty(8, 2, dtype=torch.float64),
+                                   torch.empty(8, 2, dtype=torch.float64),
+                                   group=g)                                    # 128 B
+            dist.recv(torch.empty(7, dtype=torch.int32), src=1, group=g)       # 28 B
+            dist.send(torch.empty(7, dtype=torch.int32), dst=1, group=g)       # none
+            funcol.all_reduce(torch.empty(4), "sum", g)                        # 16 B
+            DTensor.from_local(torch.empty(2, 4, device="meta"), mesh,
+                               [Replicate(), Shard(0)], run_check=False).full_tensor()
+        out["scripted"] = {"events": st.events, "stats": st.as_dict()}
+    finally:
+        dist.destroy_process_group()
+    Path(args["out"]).write_text(json.dumps(out))
+
+
 def main() -> None:
     name, args = sys.argv[1], json.loads(Path(sys.argv[2]).read_text())
-    if name in ("rules", "fake_restore"):           # one process
+    if name in ("rules", "fake_restore", "dryrun"):           # one process
         globals()[name](args)
         return
     os.environ.setdefault("OMP_NUM_THREADS", "1")

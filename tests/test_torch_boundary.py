@@ -20,8 +20,7 @@ COPIED = ("core/__init__.py", "core/scaling", "core/autoscaler", "core/convergen
 # mesh and reshards through jax and repro.distributed.sharding; the port's
 # rebuilds a torch DeviceMesh and reshards through
 # repro_torch.distributed.sharding.  It keeps the five names the JAX module
-# exports, so core/elastic/__init__.py stays a verbatim copy (the MoE
-# expert-parallel layout that remains is ROADMAP.md Queue 1 item 8b).
+# exports, so core/elastic/__init__.py stays a verbatim copy.
 PORT_WRITTEN = ("core/elastic/remesh.py",)
 
 

@@ -1,6 +1,6 @@
-"""Run ``chip_smoke.py``'s phases 10 and 11 alone: training on the card.
+"""Run ``chip_smoke.py``'s phases 10, 11 and 12 alone: training on the card.
 
-    python3 tools/train_phase.py [--parts a,b,c,d,11]
+    python3 tools/train_phase.py [--parts a,b,c,d,11,12]
 
 10a: the smoke configs of smollm-135m, mamba2-1.3b and whisper-small at
 float32, card against CPU (one step's loss and gradients, a 5-step curve);
@@ -11,7 +11,9 @@ whisper-small ``CONFIG`` prefill, 16 decode steps and one train step;
 11: the sharded train step on a one-rank NCCL mesh (qwen2.5-3b at full
 width, 4 of 36 layers), ``restore_resharded``, compression, a
 provisioning delay, and the parameters restored onto a (2, 4) mesh as one
-rank under the fake backend.  Each part prints what ``chip_smoke.py`` prints for it and fails as it
+rank under the fake backend; 12: the expert-parallel MoE bodies at full
+width, the EP sharded step on a one-rank NCCL mesh (olmoe-1b-7b, 4 of 16
+layers) and the dry run's four cells on the host.  Each part prints what ``chip_smoke.py`` prints for it and fails as it
 fails: no kernel may launch during a train step.  The card's name and
 power limit come first.  Needs one CUDA card.
 """
@@ -30,7 +32,7 @@ import chip_smoke  # noqa: E402  (this checkout's phase 10 and helpers)
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parts", default="a,b,c,d,11")
+    ap.add_argument("--parts", default="a,b,c,d,11,12")
     parts = set(ap.parse_args().parts.split(","))
     import torch
     if not torch.cuda.is_available():
@@ -60,6 +62,8 @@ def main() -> int:
     if "11" in parts:
         with tempfile.TemporaryDirectory(prefix="sharded-") as tmp:
             chip_smoke.sharded_train(dev, counters, tmp)
+    if "12" in parts:
+        chip_smoke.moe_ep_phase(dev, counters)
     chip_smoke.log(f"[train] parts {sorted(parts)} in {time.perf_counter() - t0:.1f} s")
     return 0
 
