@@ -137,7 +137,19 @@ Phases, each of which fails the run if it fails:
    processes on the host (meta tensors, fake backend; started before 12a)
    for olmoe-1b-7b train_4k on both production meshes, mixtral-8x22b
    decode_32k, mamba2-1.3b long_500k and qwen2.5-3b prefill_32k: every
-   record ``ok``.
+   record ``ok``;
+13. the tensor-parallel (Megatron) layout, on gloo ranks that are
+   processes sharing the one card: 13a the sharded step at mesh (1, 2),
+   qwen2.5-3b ``CONFIG`` at full width and 4 of 36 layers, B 4 x S 512,
+   its f32 loss and every gradient leaf against the one-device step, then
+   3 bf16 steps (ms a step, peak memory a rank); 13b ``prefill`` on the
+   rank's blocks with the flash-attention kernel on each rank's 8 query
+   heads over its one kv head (group 8, D 128), against the f32 prefill
+   within the one-device kernel prefill's error plus bf16 tolerance (two
+   planted faults must fail that gate), the kernel launched on both ranks
+   and no plain version called; 13c one f32 ``decode_step`` at mesh
+   (1, 4), where qwen2.5-3b's two kv heads put the cache's sequence on
+   ``model``, against the one-device step.
 
 The second-to-last line of stdout is the ``kernels`` JSON record (the greedy
 epilogue's launches are phase 5b's plus phase 5c's; a record named
@@ -3377,6 +3389,328 @@ def moe_ep_phase(dev, counters) -> None:
             dryrun_finish(procs)
 
 
+# ---------------------------------------------------------------------------------
+# phase 13: the tensor-parallel (Megatron) layout, gloo ranks on the one card
+# ---------------------------------------------------------------------------------
+
+TP_TOL = {"loss": 1e-6, "grad": 1e-5, "decode": 1e-5}   # 13a and 13c at f32, as on the CPU
+TP_STEPS = 3                    # 13a's timed bf16 steps
+TP_DECODE = (4, 512, 300)       # 13c: rows, cache length, the decoded position
+TP_FAULTS = ("other kv head", "wo unsummed")     # 13b's planted faults
+
+
+def tp_phase(parts=("13a", "13b", "13c")) -> None:
+    """Phase 13: the tensor-parallel layout on gloo ranks, processes that
+    share this one card (NCCL refuses two ranks on one device; gloo
+    carries CUDA tensors): 13a and 13b on two ranks, a (1, 2) mesh, 13c on
+    four, a (1, 4) mesh (:func:`tp_rank`); each process group is destroyed
+    in a ``finally``, and a failing gate in any rank fails the phase."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tp-") as tmp:
+        for group, world in ((("13a", "13b"), 2), (("13c",), 4)):
+            todo = [p for p in group if p in parts]
+            if not todo:
+                continue
+            out = os.path.join(tmp, f"tp-{world}.json")
+            mp.spawn(tp_rank, args=(todo, world, os.path.join(tmp, f"store-{world}"), out),
+                     nprocs=world, join=True)
+            failures = json.loads(Path(out).read_text())
+            if failures:
+                raise AssertionError("tensor-parallel phase failed: " + "; ".join(failures))
+    log(f"[tp] phase 13 ({', '.join(parts)}) in {time.perf_counter() - t0:.1f} s; card "
+        f"{card_line()}")
+
+
+def tp_rank(rank: int, parts, world: int, store: str, out: str) -> None:
+    """One gloo rank of phase 13 on the card; rank 0 writes the failures
+    (every rank's, gathered) to ``out``."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    warnings.filterwarnings("ignore")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        failures = []
+        if "13a" in parts:
+            failures += tp_train(rank, world)
+        if "13b" in parts:
+            failures += tp_prefill(rank, world)
+        if "13c" in parts:
+            failures += tp_decode(rank, world)
+        every = [None] * world
+        dist.all_gather_object(every, failures)
+        if rank == 0:
+            Path(out).write_text(json.dumps([f for fs in every for f in fs]))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_model(dtype):
+    """qwen2.5-3b ``CONFIG`` at full width, ``SHARDED_LAYERS`` of its 36
+    layers (phase 11's cut), on the card, and its seeded weights (every
+    rank draws the same)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=SHARDED_LAYERS, dtype=dtype)
+    model = build_model(cfg)
+    return cfg, model, model.init_params(SEED)
+
+
+def _kernel_counters():
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_mixed, decode_attention_paged)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_dyn
+    from repro_torch.kernels.sampling.ops import fused_lmhead_greedy, greedy_epilogue
+    from repro_torch.kernels.ssd.ops import ssd_intra
+    return (flash_attention_dyn, decode_attention_mixed, decode_attention_paged,
+            decode_attention, greedy_epilogue, fused_lmhead_greedy, ssd_intra)
+
+
+def _rel_err(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def tp_train(rank: int, world: int) -> list:
+    """13a: the tensor-parallel sharded step at mesh (1, ``world``) on
+    qwen2.5-3b (:func:`_tp_model`), B 4 x S 512.  At f32 its loss and every
+    gradient leaf against the one-device step on the card (gates: 1e-6
+    relative; 1e-5 of each leaf's largest magnitude); no kernel launches.
+    Then at bf16, ``TP_STEPS`` sharded steps (AdamW in place): ms a step
+    and each rank's peak memory, printed by rank 0."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.distributed.sharding import (
+        gather_whole, place, shard_params, sharded_loss_and_grads, sharded_step)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.training import make_train_step, train_state_shardings
+
+    failures = []
+    mesh = make_mesh((1, world), ("data", "model"))
+    cfg, model, params = _tp_model(torch.float32)
+    batches = train_batches(cfg, TP_STEPS, 4, 512, SEED + 4)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TP_STEPS))
+    p_sh, o_sh, b_sh = train_state_shardings(model, mesh, batches[0])
+    sp = shard_params(params, mesh)
+    loss, grads = no_launch_during(_kernel_counters(), "13a", lambda: sharded_loss_and_grads(
+        step, sp, batches[0], (p_sh, b_sh)))
+    grads = [gather_whole(g) for g in tree_leaves(grads)]     # gloo: no DTensor collective
+    del sp
+    loss1, grads1 = step.grads_of(params, {k: v.to(model.device) for k, v in batches[0].items()})
+    l_err = abs(float(loss) - float(loss1)) / abs(float(loss1))
+    g_err = max(_rel_err(a, b) for a, b in zip(grads, tree_leaves(grads1)))
+    ok = l_err <= TP_TOL["loss"] and g_err <= TP_TOL["grad"]
+    if rank == 0:
+        log(f"[tp] 13a {cfg.name} f32 ({cfg.n_layers} of 36 layers, d {cfg.d_model}, "
+            f"16 / 2 heads) B 4 x S 512 at mesh (1, {world}), gloo ranks on one card, layout "
+            f"{tensor_parallel.layout(cfg, world)}: loss {float(loss):.7f} against the "
+            f"one-device {float(loss1):.7f} ({l_err:.2e} relative, <= {TP_TOL['loss']:g}); "
+            f"gradients {g_err:.2e} of the largest magnitude (<= {TP_TOL['grad']:g}): "
+            f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        failures.append(f"13a rank {rank}: f32 step against one device")
+    del params, grads, grads1, model
+    torch.cuda.empty_cache()
+
+    cfg, model, params = _tp_model(torch.bfloat16)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TP_STEPS),
+                           donate=True)
+    sp = shard_params(params, mesh)
+    so = tree_map(place, adamw_init(params), o_sh)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = sharded_step(step, (p_sh, o_sh, b_sh))
+    times, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        sp, so, met = no_launch_during(_kernel_counters(), "13a bf16", lambda: run(sp, so, b))
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 2**20)
+    finite = all(x == x and abs(x) < 1e4 for x in losses)
+    if rank == 0:
+        log(f"[tp] 13a bf16 at mesh (1, {world}): sharded steps losses {losses}, ms "
+            f"{[round(x, 1) for x in times]}; peak memory a rank (MiB) "
+            f"{[round(x) for x in peaks]}: {'ok' if finite else 'FAILED'}")
+    if not finite:
+        failures.append(f"13a rank {rank}: bf16 losses {losses}")
+    del sp, so, model
+    torch.cuda.empty_cache()
+    return failures
+
+
+def tp_prefill(rank: int, world: int) -> list:
+    """13b: ``prefill`` with the kernels (``use_kernel``, the default) on
+    the rank's blocks at mesh (1, ``world``), qwen2.5-3b bf16
+    (:func:`_tp_model`), 4 prompts of 512 tokens: each rank runs the
+    flash-attention kernel on its 8 query heads over its one kv head (group
+    8 at D 128) in every layer.  Gates: the flash kernel launched once a
+    layer on every rank and no plain version called; the rank's
+    vocabulary block of the last logits and its kv heads of the cache
+    within :func:`bf16_tol` of the one-device kernel prefill's error, both
+    against the f32 prefill of the same (bf16) weights, as phase 12a holds
+    a bf16 sum over ranks: the row-parallel sums round each rank's bf16
+    partial once more than one device's product does.  The distance to the
+    one-device bf16 prefill is printed beside ``bf16_tol``.  The gate must
+    also fail two planted faults (:data:`TP_FAULTS`), each a prefill on the
+    same blocks: the rank's query heads reading the other rank's kv head,
+    and the row-parallel ``wo`` left unsummed over ``model``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.distributed.sharding import model_dim, shard_params
+    from repro_torch.kernels.flash_attention.ops import flash_attention_dyn
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.pytree import tree_map
+
+    failures = []
+    mesh = make_mesh((1, world), ("data", "model"))
+    _, model32, _ = _tp_model(torch.float32)
+    cfg, model, params = _tp_model(torch.bfloat16)
+    toks = train_batches(cfg, 1, 4, 512, SEED + 5)[0]["tokens"].to(model.device)
+    kv = cfg.n_kv_heads // world
+    with torch.no_grad():
+        ref32 = model32.prefill(tree_map(lambda t: t.float(), params), {"tokens": toks})
+        del model32
+        ref = model.prefill(params, {"tokens": toks})
+        local = tree_map(lambda t: t.to_local(), shard_params(params, mesh))
+        other = (rank + 1) % world          # the planted fault's kv head: the next rank's
+        swapped = {**local, "blocks": [
+            {**lb, **{n: b[n].chunk(world, model_dim(n))[other] for n in ("wk", "wv", "bk", "bv") if n in b}}
+            for lb, b in zip(local["blocks"], params["blocks"])]}
+        del params
+        before = flash_attention_dyn.launches
+        with no_plain() as plain, tensor_parallel.tp_mesh(mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model.prefill(local, {"tokens": toks})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = flash_attention_dyn.launches - before
+
+    def blocks(out):         # a one-device prefill's vocabulary block and kv heads of the rank
+        logits, cache = out
+        return {"logits": logits.chunk(world, -1)[rank],
+                **{k: cache[k][:, :, :, rank * kv:(rank + 1) * kv] for k in ("k", "v")}}
+
+    def dist_(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    mine = {"logits": got[0], "k": got[1]["k"], "v": got[1]["v"]}
+    one, exact = blocks(ref), blocks(ref32)
+    errs = {k: (dist_(mine[k], exact[k]), dist_(one[k], exact[k]), dist_(mine[k], one[k]),
+                bf16_tol(exact[k])) for k in mine}
+    gate = lambda got: all(dist_(got[k], exact[k]) <= errs[k][1] + errs[k][3] for k in errs)
+
+    # the planted faults, each of which the gate must fail
+    faults = {}
+    plain_out = lm._attn_out
+    for fault in TP_FAULTS:
+        try:
+            if fault == "wo unsummed":
+                lm._attn_out = lambda o, bp, cfg, g: o.reshape(*o.shape[:2], -1) @ bp["wo"]
+            with torch.no_grad(), tensor_parallel.tp_mesh(mesh):
+                bad = model.prefill(swapped if fault == "other kv head" else local,
+                                    {"tokens": toks})
+        finally:
+            lm._attn_out = plain_out
+        bad = {"logits": bad[0], "k": bad[1]["k"], "v": bad[1]["v"]}
+        faults[fault] = ({k: dist_(bad[k], exact[k]) for k in bad}, gate(bad))
+        del bad
+    ok = gate(mine) and not any(passed for _, passed in faults.values()) \
+        and launches == cfg.n_layers and plain.calls == 0 \
+        and mine["logits"].shape[-1] == cfg.vocab // world
+    every = [None] * world
+    dist.all_gather_object(every, {"launches": launches, "plain": plain.calls, "ms": ms,
+                                   "ok": ok})
+    if rank == 0:
+        text = "; ".join(f"{k} {a:.3e} (one device {b:.3e}, + bf16_tol {t:.3e}; to the "
+                         f"one-device bf16 {c:.3e})" for k, (a, b, c, t) in errs.items())
+        log(f"[tp] 13b {cfg.name} bf16 prefill 4 x 512 at mesh (1, {world}): each rank's "
+            f"flash launches {[e['launches'] for e in every]} (want {cfg.n_layers}: "
+            f"{cfg.n_heads // world} query heads over {kv} kv head, group "
+            f"{cfg.n_heads // cfg.n_kv_heads}, D {cfg.resolved_head_dim}), plain calls "
+            f"{[e['plain'] for e in every]}, ms {[round(e['ms'], 1) for e in every]}; rank 0's "
+            f"blocks against the f32 prefill: {text}; planted faults against the f32 "
+            f"prefill (each must fail the gate): "
+            + "; ".join(f"{f}: " + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+                        + (" PASSED THE GATE" if passed else " failed it")
+                        for f, (d, passed) in faults.items())
+            + f": {'ok' if all(e['ok'] for e in every) else 'FAILED'}")
+    if not ok:
+        failures.append(f"13b rank {rank}: {errs} faults {faults} launches {launches} "
+                        f"plain {plain.calls}")
+    del ref, ref32, got, local, swapped, model
+    torch.cuda.empty_cache()
+    return failures
+
+
+def tp_decode(rank: int, world: int) -> list:
+    """13c: one ``decode_step`` at mesh (1, ``world``) on qwen2.5-3b f32
+    (:func:`_tp_model`), whose two kv heads do not divide 4: the rules put
+    the cache's sequence on ``model``, so each rank holds a span of every
+    row, attends over it with every query head and the partial softmaxes
+    are merged across ranks.  The cache comes from the one-device prefill
+    of ``TP_DECODE``'s prompts, cut to the rank's block; gates: the rank's
+    vocabulary block of the logits and its block of the cache after the
+    step within 1e-5 of the one-device step's largest magnitude."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.distributed.sharding import _block, cache_sharding, shard_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.pytree import tree_map
+
+    failures = []
+    mesh = make_mesh((1, world), ("data", "model"))
+    cfg, model, params = _tp_model(torch.float32)
+    B, s_max, pos = TP_DECODE
+    toks = train_batches(cfg, 1, B, pos + 1, SEED + 6)[0]["tokens"].to(model.device)
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": toks[:, :pos]}, max_len=s_max)
+        c_sh = cache_sharding(cache, cfg, mesh)
+        local_cache = tree_map(lambda t, s: _block(t, mesh, s.placements).clone(), cache, c_sh)
+        ref_logits, ref_cache = model.decode_step(params, cache, toks[:, pos:], pos)
+        local = tree_map(lambda t: t.to_local(), shard_params(params, mesh))
+        del params
+        split = tensor_parallel.cache_split(c_sh["k"])
+        with tensor_parallel.tp_mesh(mesh):
+            logits, got = model.decode_step(local, local_cache, toks[:, pos:], pos,
+                                            cache_split=split)
+    errs = {"logits": _rel_err(logits, ref_logits.chunk(world, -1)[rank]),
+            **{k: _rel_err(got[k], _block(ref_cache[k], mesh, c_sh[k].placements))
+               for k in got}}
+    ok = all(e <= TP_TOL["decode"] for e in errs.values())
+    every = [None] * world
+    dist.all_gather_object(every, (errs, ok))
+    if rank == 0:
+        log(f"[tp] 13c {cfg.name} f32 decode_step at position {pos} of {s_max}, B {B}, mesh "
+            f"(1, {world}): cache {[str(p) for p in c_sh['k'].placements]} (the sequence on "
+            f"model), every rank's error over the largest magnitude "
+            f"{[{k: f'{v:.2e}' for k, v in e.items()} for e, _ in every]} (<= "
+            f"{TP_TOL['decode']:g}): {'ok' if all(o for _, o in every) else 'FAILED'}")
+    if not ok:
+        failures.append(f"13c rank {rank}: {errs}")
+    return failures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3498,6 +3832,10 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_ep_phase(dev, all_counters)
     log(f"[moe_ep] phase 12 in {time.perf_counter() - t0:.1f} s")
+
+    # the tensor-parallel layout: gloo ranks, processes on this one card
+    torch.cuda.empty_cache()
+    tp_phase()
 
     log(f"[done] greedy_epilogue launches: {launches['greedy_epilogue']} in phase 5b, "
         f"{ssm_launches['greedy_epilogue']} in phase 5c")

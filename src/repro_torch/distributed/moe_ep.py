@@ -20,7 +20,10 @@ and holds only its block of the experts.
 The bodies are plain functions of ``(x, local params, cfg, rank, mp)``
 returning the rank's partial, so one process can sum every rank's partials
 (the tests and the card do).  :func:`moe_ffn_ep` adds the collectives as
-autograd functions, Megatron's conjugate pair: the sum over ``model`` is an
+autograd functions (defined in
+:mod:`~repro_torch.distributed.tensor_parallel`, which the attention, MLP,
+Mamba-2 and vocabulary regions share), Megatron's conjugate pair: the sum
+over ``model`` is an
 all-reduce forward and the identity backward; the layer's input and the
 replicated router enter through the identity forward and an all-reduce
 backward, because each rank's graph holds only its own experts' combine
@@ -42,9 +45,11 @@ from __future__ import annotations
 
 import os
 
-import torch
-import torch.distributed as dist
-
+from repro_torch.distributed.tensor_parallel import (  # noqa: F401  (moe_ep's names)
+    _CopyToModel,
+    _MeanOfEqual,
+    _SumOverModel,
+)
 from repro_torch.models.common import MoEConfig
 from repro_torch.models.moe import capacity, expert_outputs, load_balance_loss, router_topk
 
@@ -96,49 +101,6 @@ def _local_moe_tp(x, params, cfg: MoEConfig, rank: int, mp: int, *, aux: bool = 
     weights, experts, logits = router_topk(x, params["router"], cfg)
     out = expert_outputs(x, params, weights, experts, capacity(T, cfg), E)
     return out.to(x.dtype), load_balance_loss(logits, experts, E) if aux else None
-
-
-class _SumOverModel(torch.autograd.Function):
-    """All-reduce (sum) forward, identity backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _CopyToModel(torch.autograd.Function):
-    """Identity forward, all-reduce (sum) backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _MeanOfEqual(torch.autograd.Function):
-    """The mean over ``mp`` ranks of a value every rank holds alike: the
-    value forward, 1 / mp of the cotangent backward."""
-
-    @staticmethod
-    def forward(ctx, x, mp):
-        ctx.mp = mp
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / ctx.mp, None
 
 
 def _check_blocks(params, cfg: MoEConfig, mp: int, ep_mode: bool) -> None:

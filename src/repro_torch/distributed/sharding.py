@@ -33,19 +33,23 @@ stacks each leaf on a leading layer dim.  A per-layer leaf's spec is the
 JAX spec of its stacked leaf without that leading (always replicated) dim.
 
 The sharded step (:func:`sharded_step`) is the counterpart of
-``jax.jit(step, in_shardings=..., out_shardings=...)``.  Its computation
-layout differs from what XLA picks under pjit: each rank gathers the
-parameters whole, runs the unchanged ``Model.loss_fn`` on its data shard
-of the batch, and the gradients are averaged over the data axes and cut to
-the rules' placements; only the AdamW update runs on the shards.  Under an
-expert-parallel mesh (``moe_ep.set_ep_mesh``) the MoE experts are the
-exception: they stay the rank's blocks, and ``moe_ep.moe_ffn_ep`` sums the
-ranks' partial outputs over ``model``.  The
-port's model functions are plain tensor code, and DTensor has no sharding
-rule for some of their ops (the embedding's gather mixes a plain index
-tensor with a DTensor table), so the model sees plain tensors.  The
-Megatron layout of the products themselves (column- and row-parallel
-matmuls with their own all-reduces) is later work.
+``jax.jit(step, in_shardings=..., out_shardings=...)``.  Where XLA splits
+the products the way the rules cut the leaves, the port's model functions
+run on the rank's blocks in the Megatron layout
+(:mod:`~repro_torch.distributed.tensor_parallel`): column-parallel Q / K /
+V, gate / up and Mamba-2 in-projections, row-parallel ``wo``, ``w_down``
+and ``out_proj`` each followed by its sum over ``model``, the
+vocabulary-parallel embedding, logits and cross-entropy, and, under an
+expert-parallel mesh (``moe_ep.set_ep_mesh``), the MoE experts on their
+ranks.  A region runs split when the dims it cuts divide the ``model``
+axis (:func:`tensor_parallel.layout`); the leaves of a region that does
+not -- smollm's 9 / 15 heads, gemma3-4b's 8 heads at 16 ranks, whisper --
+are gathered whole (:func:`gather_whole`), the rules' own replication
+fallback.  Each rank runs ``Model.loss_fn`` on its data shard of the batch;
+the gradients come back as the blocks (or, for gathered leaves, whole),
+are averaged over the data axes and cut to the rules' placements, and the
+AdamW update runs on the shards.  The model functions see plain tensors,
+DTensor's local blocks: DTensor has no sharding rule for some of their ops.
 """
 from __future__ import annotations
 
@@ -57,13 +61,12 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import (
     DTensor,
-    Partial,
     Placement,
     Replicate,
     Shard,
-    distribute_tensor,
 )
 
+from repro_torch.distributed import tensor_parallel
 from repro_torch.distributed.moe_ep import active_ep_mesh
 from repro_torch.pytree import tree_leaves, tree_map
 
@@ -163,6 +166,14 @@ def _jax_shape(leaf, n_layers) -> tuple:
     layer dim where the port keeps one dictionary a layer."""
     shape = tuple(leaf.shape)
     return shape if n_layers is None else (n_layers,) + shape
+
+
+def model_dim(name: str) -> int | None:
+    """The dim of a per-layer leaf named ``name`` (or ``embed`` /
+    ``lm_head``) that the rules cut on ``model``, or None where they cut
+    none: where the model functions find a block's dim."""
+    spec = _spec_for((name,), (0, 0))
+    return spec.index("model") if "model" in spec else None
 
 
 def _unstack(spec: tuple, n_layers) -> tuple:
@@ -355,15 +366,47 @@ def _local(x, sharding: NamedSharding) -> torch.Tensor:
 
 def _avg(x: torch.Tensor, mesh, axes: tuple[str, ...], placements=None, *,
          block: bool = False) -> DTensor:
-    """``x``, each rank's own, as its mean over the mesh axes ``axes``
-    (``Partial("avg")`` on those mesh dims), redistributed to
-    ``placements`` (``Replicate()`` on every mesh dim where None).  With
-    ``block``, ``x`` is the rank's block under ``placements`` (which shard
-    it on no axis in ``axes``), not a whole tensor."""
-    partial = [Partial("avg") if a in axes else (placements[i] if block else Replicate())
-               for i, a in enumerate(mesh.mesh_dim_names)]
-    return DTensor.from_local(x, mesh, partial, run_check=False).redistribute(
-        mesh, placements or [Replicate()] * mesh.ndim)
+    """``x``, each rank's own, as its mean over the mesh axes ``axes`` (an
+    all-reduce over each axis's group, then / their ranks), laid out under
+    ``placements`` (``Replicate()`` on every mesh dim where None): cut to
+    the rank's block there, or with ``block`` already the rank's block
+    (``placements`` then shard it on no axis in ``axes``).  The
+    collectives are the process group's own (``c10d``), not DTensor's
+    redistributes: gloo carries CUDA tensors through the former only."""
+    out = x.clone()
+    n = 1
+    for a in axes:
+        k = mesh.mesh_dim_names.index(a)
+        if mesh.size(k) > 1:
+            dist.all_reduce(out, group=mesh.get_group(k))
+            n *= mesh.size(k)
+    if n > 1:
+        out = out / n
+    placements = tuple(placements or [Replicate()] * mesh.ndim)
+    if not block:
+        out = _block(out, mesh, placements)
+    return DTensor.from_local(out, mesh, placements, run_check=False)
+
+
+def gather_whole(x) -> torch.Tensor:
+    """The whole tensor of a DTensor ``x`` sharded evenly (the rules'
+    layouts), gathered with the process group's own all-gathers, innermost
+    mesh dim first, so a dim sharded on ('pod', 'data') comes back in
+    block order ``p * D + d``: ``full_tensor`` without DTensor's
+    redistributes (gloo carries CUDA tensors through the former only).  A
+    plain tensor is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, out = x.device_mesh, x.to_local()
+    for mdim in reversed(range(mesh.ndim)):
+        p, n = x.placements[mdim], mesh.size(mdim)
+        if not p.is_shard() or n == 1:
+            continue
+        parts = out.movedim(p.dim, 0).contiguous()
+        full = parts.new_empty((n * parts.shape[0],) + tuple(parts.shape[1:]))
+        tensor_parallel._GATHER(full, parts, group=mesh.get_group(mdim))
+        out = full.movedim(0, p.dim)
+    return out.contiguous()
 
 
 def data_mean(loss, grads, local_batch, mesh, axes: tuple[str, ...], shardings=None,
@@ -429,25 +472,39 @@ def _expert_leaf(names: tuple) -> bool:
     return "moe" in names and names[-1] in ("w_gate", "w_up", "w_down")
 
 
+def split_blocks(p_sh, cfg, mesh):
+    """A tree of bools congruent with ``p_sh``: True where the sharded step
+    passes the leaf as the rank's block (its region runs split,
+    :func:`tensor_parallel.split_leaf`, or it is a MoE expert under an
+    expert-parallel mesh), False where it gathers it whole."""
+    mp = model_axis_size(mesh)
+    ep = active_ep_mesh() is not None
+    return _walk(lambda names, s, n: (ep and _expert_leaf(names))
+                 or (mp > 1 and tensor_parallel.split_leaf(names, cfg, mp)), p_sh)
+
+
 def sharded_loss_and_grads(step, params, batch, shardings):
     """``(loss, grads)`` of one sharded step: each rank takes its data shard
-    of ``batch``, gathers ``params`` whole (``full_tensor``), runs the
-    unchanged ``step.grads_of`` (``Model.loss_fn`` through autograd, with
-    its microbatches), and :func:`data_mean` over the data axes gives the
+    of ``batch``, runs ``step.grads_of`` (``Model.loss_fn`` through
+    autograd, with its microbatches) under the tensor-parallel layout on
+    ``params``' mesh, and :func:`data_mean` over the data axes gives the
     whole batch's loss and the gradients under the parameters' placements.
-    ``shardings``: ``(param_sh, batch_sh)`` trees of :class:`NamedSharding`.
+    ``shardings``: ``(param_sh, batch_sh)`` trees of :class:`NamedSharding`;
+    ``step.cfg`` the model's config (``make_train_step`` sets it).
 
-    Where the MoE layers route: without an expert-parallel mesh, every
-    leaf is gathered whole, and each MoE layer routes, and fills its
+    The leaves of a region that runs split (:func:`split_blocks`) stay the
+    rank's blocks (``to_local``), and so do their gradients; only the
+    leaves of a region that runs whole are gathered (:func:`gather_whole`).
+
+    Where the MoE layers route: without an expert-parallel mesh, the
+    experts are gathered whole, and each MoE layer routes, and fills its
     capacity, over the rank's data shard (``moe.moe_ffn`` on the shard's
     tokens: the JAX package under pjit routes over the whole batch).  With
     one (``moe_ep.set_ep_mesh``, the JAX switch ``REPRO_MOE_EP``), the MoE
     expert leaves (w_gate, w_up, w_down) stay the rank's blocks under the
-    rules (the expert dim on ``model``, or in TP mode the FFN hidden dim),
-    every other leaf is gathered whole, and ``moe_ep.moe_ffn_ep`` routes
-    over the data shard's tokens as the JAX branch does; the expert
-    gradients come back as the rank's blocks, averaged over the data axes
-    only."""
+    rules (the expert dim on ``model``, or in TP mode the FFN hidden dim)
+    and ``moe_ep.moe_ffn_ep`` routes over the data shard's tokens as the
+    JAX branch does."""
     p_sh, b_sh = shardings
     mesh = tree_leaves(p_sh)[0].mesh
     local_batch = tree_map(_local, batch, b_sh)
@@ -455,11 +512,10 @@ def sharded_loss_and_grads(step, params, batch, shardings):
     if ep_mesh is not None and ep_mesh is not mesh:
         raise ValueError("the expert-parallel mesh (moe_ep.set_ep_mesh) is not the step's "
                          "mesh: set the mesh the parameters are placed on")
-    ep = ep_mesh is not None
-    blocks = _walk(lambda names, s, n: ep and _expert_leaf(names), p_sh)
-    whole = tree_map(lambda p, b: p.to_local() if b else
-                     (p.full_tensor() if isinstance(p, DTensor) else p), params, blocks)
-    loss, grads = step.grads_of(whole, local_batch)
+    blocks = split_blocks(p_sh, step.cfg, mesh)
+    whole = tree_map(lambda p, b: p.to_local() if b else gather_whole(p), params, blocks)
+    with tensor_parallel.tp_mesh(mesh):
+        loss, grads = step.grads_of(whole, local_batch)
     del whole
     return data_mean(loss, grads, local_batch, mesh, data_axes(mesh), p_sh, blocks)
 
@@ -480,11 +536,12 @@ def sharded_step(step: Callable, in_shardings) -> Callable:
     (AdamW, in place where the step donates) runs on each rank's shards.
     The metrics are plain tensors, equal on every rank.
 
-    The forward and backward see every parameter gathered whole, except,
-    under an expert-parallel mesh (``moe_ep.set_ep_mesh``), the MoE expert
-    leaves (w_gate, w_up, w_down), which stay sharded on ``model``
-    throughout: the rank computes with its block, and its gradient and
-    AdamW update are the block's (:func:`sharded_loss_and_grads`)."""
+    The forward and backward run in the tensor-parallel layout: the leaves
+    of every region that runs split (and, under an expert-parallel mesh,
+    the MoE experts) stay the rank's blocks throughout -- the rank computes
+    with its block, and its gradient and AdamW update are the block's --
+    and only the leaves of a region that runs whole are gathered
+    (:func:`sharded_loss_and_grads`)."""
     p_sh, _, b_sh = in_shardings
 
     def run(params, opt_state, batch):
@@ -504,5 +561,6 @@ def sharded_step(step: Callable, in_shardings) -> Callable:
 
 
 __all__ = ["AbstractMesh", "NamedSharding", "batch_sharding", "cache_sharding",
-           "data_axes", "data_mean", "global_norm", "model_axis_size", "param_sharding",
-           "place", "shard_params", "sharded_loss_and_grads", "sharded_step"]
+           "data_axes", "data_mean", "gather_whole", "global_norm", "model_axis_size", "model_dim",
+           "param_sharding", "place", "shard_params", "sharded_loss_and_grads", "sharded_step",
+           "split_blocks"]

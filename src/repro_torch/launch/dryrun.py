@@ -33,14 +33,29 @@ buffer apart from its live tensors, which ``peak_bytes`` counts.  ``fits``
 says whether the rank's bytes (the peak, else the arguments) fit in the
 card's 80 GB; a cell that does not fit is still ``ok``.
 
-``layout`` says how the port lays a cell out, which is not what XLA picks:
-a train cell gathers every parameter whole each step, except the MoE
-experts (the sharded step's layout); a prefill or decode cell holds the
-parameters gathered whole, resident, except the experts, and runs the
-unchanged model on the rank's data shard of the batch and its cache (a
-batch that does not divide the data ranks, such as long-context decode's
-batch of 1, whole and redundantly on every rank).  On meta tensors every
-kernel wrapper takes its plain version: the counts are the plain route's.
+``layout`` says how the port lays a cell out: the Megatron layout of
+:mod:`~repro_torch.distributed.tensor_parallel`, which computes what XLA
+computes under the rules' ``in_shardings``.  Each region (attention, the
+gated MLP, the Mamba-2 mixer, the vocabulary) runs on the rank's blocks
+where the dims it cuts divide the ``model`` axis, and on its leaves
+gathered whole where they do not; ``layout["regions"]`` lists which ran
+split and which whole.  A train cell is ``sharded_step`` (only the leaves
+of whole regions gathered, each step); a prefill or decode cell holds the
+rank's blocks of every leaf under ``param_sharding`` (a whole region
+gathers its leaves layer by layer), its data shard of the batch (a batch
+that does not divide the data ranks, such as long-context decode's batch
+of 1, whole on every rank) and, for decode, the cache as ``cache_sharding``
+places it: kv heads on ``model`` where they divide, else the sequence on
+``model`` (each rank attends over its span; the partial softmaxes are
+merged over ``model``), the sequence on the data axes for a batch of 1,
+and the head dim on ``model`` where neither divides (the scores summed
+over ``model``).  A prefill cell returns its cache in the same blocks and
+its logits as the rank's vocabulary block.  whisper-small keeps the
+gathered layout (its 12 heads and 51865-word vocabulary divide no model
+axis of 16): parameters whole and resident, the cache whole on every
+rank.  The MoE experts are the rank's blocks under an expert-parallel
+mesh (``moe_ep``), as before.  On meta tensors every kernel wrapper takes
+its plain version: the counts are the plain route's.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmoe-1b-7b \\
@@ -62,13 +77,15 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCHS, SHAPES, get_config, input_specs, shape_supported
-from repro_torch.distributed import moe_ep
+from repro_torch.distributed import moe_ep, tensor_parallel
 from repro_torch.distributed.hlo_analysis import _nbytes, collective_stats, roofline_terms
 from repro_torch.distributed.sharding import (
     _block,
     _expert_leaf,
     _walk,
     batch_sharding,
+    cache_sharding,
+    model_axis_size,
     param_sharding,
     sharded_step,
 )
@@ -81,13 +98,20 @@ from repro_torch.training.train_step import make_train_step
 CARD_BYTES = 80e9               # NVIDIA H100 80GB HBM3
 
 LAYOUTS = {
-    "train": "sharded_step: every parameter gathered whole each step except the MoE "
-             "experts (the rank's blocks, moe_ep); the batch's data shard; gradients "
-             "averaged over the data axes; AdamW on the rank's shards",
-    "serve": "parameters gathered whole and resident except the MoE experts (the "
-             "rank's blocks, moe_ep); the unchanged model on the rank's data shard of "
-             "the batch and the cache, all heads (a batch that does not divide the data "
-             "ranks whole, redundantly)",
+    "train": "sharded_step in the Megatron layout: the leaves of split regions the rank's "
+             "blocks (column-parallel in-projections, row-parallel out-projections summed "
+             "over model, the vocabulary cut on model, the MoE experts on their ranks), the "
+             "leaves of whole regions gathered each step; the batch's data shard; "
+             "gradients averaged over the data axes; AdamW on the rank's shards",
+    "serve": "the rank's blocks of every leaf under param_sharding, resident (whole regions "
+             "gather theirs layer by layer); the rank's data shard of the batch; the cache "
+             "as cache_sharding places it (kv heads, else the sequence, on model; the "
+             "sequence on the data axes for a batch of 1; else the head dim on model), its "
+             "spans' partial softmaxes merged across ranks; the logits the rank's "
+             "vocabulary block",
+    "gathered": "parameters gathered whole and resident; the unchanged model on the rank's "
+                "data shard of the batch and the cache, all heads (whisper: no head count "
+                "or vocabulary that divides the model axis)",
 }
 
 
@@ -130,16 +154,25 @@ def _data_shard(tree, mesh, dim: int):
     return tree_map(one, tree)
 
 
+def _blocks(p_abs, mesh):
+    """Every leaf as the rank's block under the rules, plain meta tensors."""
+    return tree_map(lambda p, s: _placed(p, s).to_local(), p_abs, param_sharding(p_abs, mesh))
+
+
 def build_cell(arch: str, shape, mesh, cfg_override=None):
     """Returns ``(fn, args)`` for the cell: ``fn(*args)`` is the rank's step
-    on meta tensors (DTensors under the rules for a train cell).
-    ``shape``: a name in ``SHAPES`` or a ``ShapeSpec``."""
+    on meta tensors (DTensors under the rules for a train cell), with the
+    mesh set as the expert-parallel and the tensor-parallel mesh (unset
+    them after: ``run_cell`` does).  ``shape``: a name in ``SHAPES`` or a
+    ``ShapeSpec``."""
     moe_ep.set_ep_mesh(mesh)
+    tensor_parallel.set_tp_mesh(mesh)
     cfg = cfg_override or get_config(arch)
     model = build_model(cfg, device="meta")
     sp = SHAPES[shape] if isinstance(shape, str) else shape
     specs = input_specs(cfg, shape)
     p_abs = model.abstract_params()
+    gathered = cfg.family in tensor_parallel.GATHERED_FAMILIES
 
     if sp.kind == "train":
         step = make_train_step(model, AdamWConfig(), donate=True)
@@ -149,22 +182,40 @@ def build_cell(arch: str, shape, mesh, cfg_override=None):
         fn = sharded_step(step, (p_sh, o_sh, b_sh))
         args = (tree_map(_placed, p_abs, p_sh), tree_map(_placed, o_abs, o_sh),
                 tree_map(_placed, specs, b_sh))
-    elif sp.kind == "prefill":
-        params = _serving_params(p_abs, mesh)
+        return fn, args
+    params = _serving_params(p_abs, mesh) if gathered else _blocks(p_abs, mesh)
+    whole_cache = model.init_cache(sp.global_batch, sp.seq_len)
+    c_sh = cache_sharding(whole_cache, cfg, mesh)
+    attn = next((k for k in ("k", "attn_k") if k in c_sh), None)
+    split = None if gathered or attn is None else tensor_parallel.cache_split(c_sh[attn])
+    if sp.kind == "prefill":
         batch = _data_shard(specs, mesh, 0)
 
         def fn(params, batch):
-            return model.prefill(params, batch, max_len=sp.seq_len)
-        args = (params, batch)
-    else:  # decode
-        params = _serving_params(p_abs, mesh)
-        token = _data_shard(specs["token"], mesh, 0)
-        cache = _data_shard(model.init_cache(sp.global_batch, sp.seq_len), mesh, 1)
+            if gathered:
+                return model.prefill(params, batch, max_len=sp.seq_len)
+            return model.prefill(params, batch, max_len=sp.seq_len, cache_split=split)
+        return fn, (params, batch)
+    token = _data_shard(specs["token"], mesh, 0)
+    if gathered:
+        cache = _data_shard(whole_cache, mesh, 1)
+    else:
+        cache = tree_map(lambda c, s: _placed(c, s).to_local(), whole_cache, c_sh)
 
-        def fn(params, cache, token, pos):
+    def fn(params, cache, token, pos):
+        if gathered:
             return model.decode_step(params, cache, token, pos)
-        args = (params, cache, token, sp.seq_len - 1)
-    return fn, args
+        return model.decode_step(params, cache, token, pos, cache_split=split)
+    return fn, (params, cache, token, sp.seq_len - 1)
+
+
+def layout_of(cfg, sp, mesh) -> dict:
+    """The cell's ``layout`` record: the layout's description and, per
+    region, whether it ran split or whole at the mesh's model size."""
+    kind = "train" if sp.kind == "train" else (
+        "gathered" if cfg.family in tensor_parallel.GATHERED_FAMILIES else "serve")
+    return {"kind": kind, "description": LAYOUTS[kind],
+            "regions": tensor_parallel.layout(cfg, model_axis_size(mesh))}
 
 
 class _BytesAccessed(TorchDispatchMode):
@@ -257,7 +308,7 @@ def run_cell(arch: str, shape, mesh_kind: str, *, mesh_shape=None, mesh_axes=Non
         rec.update(
             status="ok",
             devices=n_dev,
-            layout=LAYOUTS["train" if train else "serve"],
+            layout=layout_of(cfg, sp, mesh),
             memory=mem,
             cost={"flops": total_flops, "bytes accessed": accessed},
             collectives=coll.as_dict(),
@@ -270,6 +321,7 @@ def run_cell(arch: str, shape, mesh_kind: str, *, mesh_shape=None, mesh_axes=Non
                    traceback=traceback.format_exc()[-2000:])
     finally:
         moe_ep.set_ep_mesh(None)
+        tensor_parallel.set_tp_mesh(None)
         dist.destroy_process_group()
     rec["wall_s"] = round(time.time() - t0, 1)
     return rec

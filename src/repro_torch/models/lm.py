@@ -25,12 +25,24 @@ plain version.
 :func:`loss_fn` is the training path: :func:`forward` with
 ``use_kernel=False`` (the JAX package trains with its kernels off too),
 each block under :func:`_remat`, on the card and on the CPU alike.
+
+Under tensor parallelism (``distributed.tensor_parallel.set_tp_mesh``) the
+same functions run on the rank's blocks of the parameters in the Megatron
+layout: attention on the rank's query heads (its kv heads where they
+divide ``model``, else every kv head from ``wk`` / ``wv`` gathered, each
+rank reading the ones its query heads read) with a row-parallel ``wo``;
+the gated MLP column- / row-parallel; the embedding, logits and
+cross-entropy on the rank's vocabulary block.  Head counts come from the
+local weights' widths; a region whose dims do not divide ``model`` runs on
+its leaves gathered whole (``tensor_parallel.layout``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.distributed import moe_ep
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import model_dim
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention_mixed, decode_attention_paged,
 )
@@ -118,18 +130,86 @@ def layer_windows(cfg: ModelConfig) -> tuple[int, ...]:
 # block application
 # ---------------------------------------------------------------------------------
 
-def _project_qkv(x, bp, cfg: ModelConfig):
+def _attn_split(cfg: ModelConfig, g) -> bool:
+    return g is not None and tp.attention_split(cfg, g.mp)
+
+
+def _project_qkv(x, bp, cfg: ModelConfig, g=None):
+    """q, k, v (B, S, heads, hd) of x.
+
+    With no model group ``g`` (one device): every head from whole leaves.
+    Under tensor parallelism (``g``, :mod:`~repro_torch.distributed.tensor_parallel`)
+    the heads come from the local weights' widths: split attention (query
+    heads divide ``model``; x has entered through ``copy_to_model``) gives
+    q on the rank's heads and k / v on its kv heads where those divide,
+    else on every kv head from ``wk`` / ``wv`` (and ``bk`` / ``bv``)
+    gathered over ``model`` (:func:`_kv_heads` then picks the ones the
+    rank's query heads read); whole attention gives every head, any block
+    leaf gathered."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ bp["wq"]
-    k = x @ bp["wk"]
-    v = x @ bp["wv"]
-    if cfg.qkv_bias:
-        q = q + bp["bq"]
-        k = k + bp["bk"]
-        v = v + bp["bv"]
-    return (q.reshape(B, S, cfg.n_heads, hd), k.reshape(B, S, cfg.n_kv_heads, hd),
-            v.reshape(B, S, cfg.n_kv_heads, hd))
+    split = _attn_split(cfg, g)
+    kv_cut = split and cfg.n_kv_heads % g.mp == 0
+
+    def proj(w_name, b_name, heads, cut):
+        w = bp[w_name]
+        b = bp[b_name] if cfg.qkv_bias else None
+        if cut:
+            tp.expect_block(w, model_dim(w_name), heads * hd, g)
+        elif g is not None:
+            w = tp.whole(w, model_dim(w_name), heads * hd, g, in_split=split)
+            b = tp.whole(b, model_dim(b_name), heads * hd, g, in_split=split)
+        y = x @ w
+        if b is not None:
+            y = y + b
+        return y.reshape(B, S, -1, hd)
+
+    return (proj("wq", "bq", cfg.n_heads, split), proj("wk", "bk", cfg.n_kv_heads, kv_cut),
+            proj("wv", "bv", cfg.n_kv_heads, kv_cut))
+
+
+def _kv_heads(cfg: ModelConfig, g):
+    """Where attention is split and its kv heads are not: the kv heads the
+    rank's query heads read (a slice, or one index per query head where
+    the two counts do not nest); None otherwise."""
+    if not _attn_split(cfg, g) or cfg.n_kv_heads % g.mp == 0:
+        return None
+    n = cfg.n_heads // g.mp
+    group = cfg.n_heads // cfg.n_kv_heads
+    first = g.rank * n
+    if group % n == 0:
+        return slice(first // group, first // group + 1)
+    if n % group == 0:
+        return slice(first // group, (first + n) // group)
+    return torch.arange(first, first + n) // group
+
+
+def _take_heads(t, sel):
+    """t (B, S, H, hd) on the kv heads ``sel`` (:func:`_kv_heads`)."""
+    if sel is None:
+        return t
+    if isinstance(sel, slice):
+        return t[:, :, sel]
+    return t.index_select(2, sel.to(t.device))
+
+
+def _attn_out(o, bp, cfg: ModelConfig, g):
+    """The output projection of o (B, S, heads, hd): row-parallel over the
+    rank's heads and summed over ``model`` where attention is split, else
+    through ``wo`` whole."""
+    o = o.reshape(*o.shape[:2], -1)
+    full = cfg.n_heads * cfg.resolved_head_dim
+    if _attn_split(cfg, g):
+        tp.expect_block(bp["wo"], model_dim("wo"), full, g)
+        return tp.sum_over_model(o @ bp["wo"], g)
+    return o @ (bp["wo"] if g is None else tp.whole(bp["wo"], model_dim("wo"), full, g))
+
+
+def _attn_in(x, bp, cfg: ModelConfig, g):
+    """``ln1`` of x, entered into the attention region (``copy_to_model``
+    where it runs split)."""
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    return tp.copy_to_model(h, g) if _attn_split(cfg, g) else h
 
 
 def _ffn(h, bp, cfg: ModelConfig, *, aux: bool = False):
@@ -142,7 +222,9 @@ def _ffn(h, bp, cfg: ModelConfig, *, aux: bool = False):
     once (idle rows included): the whole batch on one device, the rank's
     data shard in the sharded step, which gathers the experts whole.  The
     load-balance loss is computed only with ``aux`` (only :func:`forward`
-    returns it), else it is 0.0."""
+    returns it), else it is 0.0.  The gated MLP runs column- / row-parallel
+    under tensor parallelism where ``d_ff`` divides ``model``
+    (:func:`tensor_parallel.layout`), else on its leaves gathered whole."""
     if cfg.moe:
         mesh = moe_ep.active_ep_mesh()
         if mesh is not None:
@@ -151,7 +233,17 @@ def _ffn(h, bp, cfg: ModelConfig, *, aux: bool = False):
         B, S, d = h.shape
         out, loss = moe_ffn(h.reshape(B * S, d), bp["moe"], cfg.moe, aux=aux)
         return out.reshape(B, S, d), loss if aux else 0.0
-    return gated_mlp(h, bp["mlp"]["w_gate"], bp["mlp"]["w_up"], bp["mlp"]["w_down"]), 0.0
+    mlp = bp["mlp"]
+    g = tp.model_group()
+    if g is None:
+        return gated_mlp(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"]), 0.0
+    names = ("w_gate", "w_up", "w_down")
+    if tp.mlp_split(cfg, g.mp):                 # column w_gate / w_up, row w_down
+        for name in names:
+            tp.expect_block(mlp[name], model_dim(name), cfg.d_ff, g)
+        out = gated_mlp(tp.copy_to_model(h, g), mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+        return tp.sum_over_model(out, g), 0.0
+    return gated_mlp(h, *(tp.whole(mlp[n], model_dim(n), cfg.d_ff, g) for n in names)), 0.0
 
 
 def _kv_quantize(x):
@@ -214,22 +306,25 @@ def _prefill_attention(q, k, v, window: int, use_kernel: bool = True):
 
 def block_forward(x, bp, window: int, cos, sin, cfg: ModelConfig, *, aux: bool = False,
                   use_kernel: bool = True):
-    """Full-sequence block: x (B, S, d) -> (x, (k, v), aux), k/v after RoPE;
-    the MoE load-balance loss only with ``aux`` (else 0.0); ``use_kernel``
-    as in :func:`_prefill_attention`."""
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    q, k, v = _project_qkv(h, bp, cfg)
+    """Full-sequence block: x (B, S, d) -> (x, (k, v), aux), k/v after RoPE
+    on the heads the rank holds (:func:`_project_qkv`); the MoE
+    load-balance loss only with ``aux`` (else 0.0); ``use_kernel`` as in
+    :func:`_prefill_attention`."""
+    g = tp.model_group()
+    h = _attn_in(x, bp, cfg, g)
+    q, k, v = _project_qkv(h, bp, cfg, g)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = _prefill_attention(q, k, v, window, use_kernel)
-    x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
+    sel = _kv_heads(cfg, g)
+    o = _prefill_attention(q, _take_heads(k, sel), _take_heads(v, sel), window, use_kernel)
+    x = x + _attn_out(o, bp, cfg, g)
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     f, loss = _ffn(h, bp, cfg, aux=aux)
     return x + f, (k, v), loss
 
 
 def block_decode(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
-                 cfg: ModelConfig, cache_ks=None, cache_vs=None, *, paged=None):
+                 cfg: ModelConfig, cache_ks=None, cache_vs=None, *, paged=None, split=None):
     """One-token decode: x (B, 1, d).  ``cache_ks/vs``: int8 scale caches.
 
     With ``paged``, the step's :class:`~repro_torch.serving.kvcache.PagedOps`
@@ -244,13 +339,30 @@ def block_decode(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
     (every row) or a (B,) vector (per row): the token is written in place
     (:class:`~repro_torch.serving.kvcache.DenseScalarOps` /
     ``DenseVectorOps``) and the masked sdpa attends, as the JAX
-    ``block_decode`` does for a dense cache."""
+    ``block_decode`` does for a dense cache.
+
+    Under tensor parallelism the caches hold the heads the rank holds
+    (:func:`_project_qkv`); ``split``, a
+    :class:`~repro_torch.distributed.tensor_parallel.CacheSplit`, says
+    where the rules cut them further (:func:`_split_cache_attention`)."""
     int8_kv = cache_ks is not None
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    q, k, v = _project_qkv(h, bp, cfg)
+    g = tp.model_group()
+    h = _attn_in(x, bp, cfg, g)
+    q, k, v = _project_qkv(h, bp, cfg, g)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if split is not None:
+        if int8_kv or paged is not None:
+            raise ValueError("a cache cut on its sequence or head dim is a dense "
+                             "native-dtype cache")
+        o = _split_cache_attention(q, k, v, cache_k, cache_v, pos, window, cfg, g, split)
+        x = x + _attn_out(o, bp, cfg, g)
+        h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+        return x + _ffn(h, bp, cfg)[0]
+    sel = _kv_heads(cfg, g)
     if paged is not None:
+        if sel is not None:
+            raise ValueError("a paged pool takes the kv heads the rank holds whole")
         ops = paged
     elif torch.is_tensor(pos) and pos.dim() == 1:
         ops = kvcache.DenseVectorOps()
@@ -273,10 +385,68 @@ def block_decode(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
         if int8_kv:
             k_eff = _kv_dequantize(k_eff, cache_ks, cfg.dtype)
             v_eff = _kv_dequantize(v_eff, cache_vs, cfg.dtype)
-        o = sdpa(q, k_eff, v_eff, ops.mask(k_eff.shape[1], pos, window))
-    x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
+        o = sdpa(q, _take_heads(k_eff, sel), _take_heads(v_eff, sel),
+                 ops.mask(k_eff.shape[1], pos, window))
+    x = x + _attn_out(o, bp, cfg, g)
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     return x + _ffn(h, bp, cfg)[0]
+
+
+def _split_cache_attention(q, k, v, cache_k, cache_v, pos, window: int, cfg: ModelConfig,
+                           g, split):
+    """One token's attention over a dense cache block (B, S_loc, Hc, D_loc)
+    that the rules cut on its sequence (``split.seq``: the rank holds one
+    span) and / or its head dim (``split.dim``: one D block of every
+    head), at one position ``pos`` for every row.
+
+    The token's k / v is written only by the rank whose span holds ``pos``
+    (its D block where the head dim is cut).  The queries are the heads the
+    cache holds: the rank's own where the cache holds its kv heads, else
+    every query head (gathered over ``model`` where attention is split).
+    Each rank scores its span (on its D block, the scores then summed over
+    ``model``), keeps its partial softmax -- the max, the sum of ``exp``
+    and the unnormalised ``p v`` -- and
+    :func:`~repro_torch.distributed.tensor_parallel.merge_softmax` merges
+    the partials over the span's axes; a cut head dim's output is gathered
+    over ``model``.  Returns o (B, 1, heads, hd) on the rank's query heads."""
+    if torch.is_tensor(pos) and pos.dim() > 0:
+        raise ValueError("a cache cut on its sequence takes one position for every row")
+    p = int(pos)
+    B, s_loc, h_cache = cache_k.shape[:3]
+    start = split.span(s_loc)
+    d = split.dim
+
+    def cut(t):
+        return t if d is None else t.chunk(d.mp, -1)[d.rank]
+
+    if start <= p < start + s_loc:
+        cache_k[:, p - start] = cut(k)[:, 0].to(cache_k.dtype)
+        cache_v[:, p - start] = cut(v)[:, 0].to(cache_v.dtype)
+    gathered = _attn_split(cfg, g) and h_cache == cfg.n_kv_heads and g.mp > 1 \
+        and cfg.n_kv_heads % g.mp != 0
+    qa = tp.gather_over_model(q, 2, g, partial=False) if gathered else q
+    qd = cut(qa)
+    hq = qd.shape[2]
+    group = hq // h_cache
+    qf = qd.float().reshape(B, h_cache, group, -1) * (cfg.resolved_head_dim ** -0.5)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qf, cache_k.float())
+    if d is not None:
+        scores = tp.sum_over_model(scores, d)
+    k_pos = start + torch.arange(s_loc, device=q.device)
+    valid = k_pos <= p
+    if window > 0:
+        valid &= k_pos > p - window
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1)
+    e = torch.where(valid, torch.exp(scores - m[..., None]), torch.zeros_like(scores))
+    l_sum = e.sum(dim=-1)
+    acc = torch.einsum("bhgk,bkhd->bhgd", e, cache_v.float())
+    for axis in split.seq:
+        m, l_sum, acc = tp.merge_softmax(m, l_sum, acc, axis)
+    o = (acc / l_sum[..., None]).reshape(B, 1, hq, -1).to(q.dtype)
+    if d is not None:
+        o = tp.gather_over_model(o, 3, d, partial=False)
+    return o.chunk(g.mp, 2)[g.rank] if gathered else o
 
 
 def block_verify(x, bp, window: int, cache_k, cache_v, pos, cos, sin,
@@ -319,8 +489,41 @@ def _lm_head_weight(params, cfg: ModelConfig):
 
 
 def _lm_head(params, h, cfg: ModelConfig):
-    """Full-vocab logits in f32 (a plain matmul, as XLA runs it in JAX)."""
-    return (h @ _lm_head_weight(params, cfg)).float()
+    """Logits in f32 (a plain matmul, as XLA runs it in JAX): every column,
+    or under tensor parallelism with the vocabulary split
+    (:func:`tensor_parallel.vocab_split`) the rank's block of V / mp
+    columns (``lm_head`` ``P(None, "model")``, or the tied ``embed.T``)."""
+    g = tp.model_group()
+    if g is None:
+        return (h @ _lm_head_weight(params, cfg)).float()
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    if tp.vocab_split(cfg, g.mp):
+        tp.expect_block(params[name], model_dim(name), cfg.vocab, g)
+        return tp.vocab_logits(h, _lm_head_weight(params, cfg), g)
+    w = tp.whole(params[name], model_dim(name), cfg.vocab, g)
+    return (h @ (w.T if cfg.tie_embeddings else w)).float()
+
+
+def _embed_tokens(params, tokens, cfg: ModelConfig):
+    """Rows ``tokens`` of ``embed``: under tensor parallelism with the
+    vocabulary split, from the rank's rows (:func:`tensor_parallel.vocab_embed`)."""
+    g = tp.model_group()
+    if g is None:
+        return params["embed"][tokens.long()]
+    if tp.vocab_split(cfg, g.mp):
+        tp.expect_block(params["embed"], model_dim("embed"), cfg.vocab, g)
+        return tp.vocab_embed(params["embed"], tokens, g)
+    return tp.whole(params["embed"], model_dim("embed"), cfg.vocab, g)[tokens.long()]
+
+
+def _cross_entropy(logits, targets, cfg: ModelConfig):
+    """:func:`~repro_torch.models.common.lm_loss` of the logits
+    :func:`_lm_head` gives: over the rank's vocabulary block with the
+    vocabulary split (:func:`tensor_parallel.vocab_cross_entropy`)."""
+    g = tp.model_group()
+    if g is not None and tp.vocab_split(cfg, g.mp):
+        return tp.vocab_cross_entropy(logits, targets, g)
+    return lm_loss(logits, targets)
 
 
 def _embed_in(params, batch, cfg: ModelConfig):
@@ -328,7 +531,7 @@ def _embed_in(params, batch, cfg: ModelConfig):
     for the embeddings input mode, else the embedded ``batch["tokens"]``."""
     if cfg.input_mode == "embeddings":
         return batch["embeds"].to(cfg.dtype)
-    return params["embed"][batch["tokens"].long()]
+    return _embed_tokens(params, batch["tokens"], cfg)
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -414,14 +617,16 @@ def loss_fn(params, batch, cfg: ModelConfig):
     cross-entropy of :func:`~repro_torch.models.common.lm_loss` over
     ``batch["targets"]`` plus 0.01 times the MoE load-balance loss, through
     :func:`forward` without the kernels (autograd runs through it on either
-    device).  metrics: ``{"ce", "aux"}``."""
+    device).  metrics: ``{"ce", "aux"}``.  Under tensor parallelism the
+    cross-entropy runs over the rank's vocabulary block
+    (:func:`_cross_entropy`)."""
     logits, aux = forward(params, batch, cfg, use_kernel=False)
-    ce = lm_loss(logits, batch["targets"])
+    ce = _cross_entropy(logits, batch["targets"], cfg)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
-            last_idx=None):
+            last_idx=None, cache_split=None):
     """Run the prompt -> (last-position logits (B, 1, V) f32, cache dict of
     (L, B, max_len, Hkv, hd) leaves).
 
@@ -431,7 +636,15 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
     last position; the causal mask keeps positions <= last_idx independent
     of the padding).  None takes the last position.  The cache is padded to
     ``max_len``; an int8 cache is quantized after attention, which runs on
-    the unquantized K/V."""
+    the unquantized K/V.
+
+    Under tensor parallelism (``tensor_parallel.set_tp_mesh``, the rank's
+    blocks of the parameters) the logits are **the rank's vocabulary
+    block**, (B, 1, V / mp), where the vocabulary is split; the cache holds
+    the kv heads the rank holds (its own where they divide ``model``, else
+    all of them), cut further by ``cache_split``
+    (:func:`tensor_parallel.cache_split` of the rules' placement) on its
+    sequence and head dim."""
     x, kvs, _ = _run_blocks(params, _embed_in(params, batch, cfg), cfg)
     B, S = x.shape[:2]
     max_len = max_len or S
@@ -452,22 +665,49 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
     if cfg.kv_cache_dtype == "int8":
         kq, ksc = _kv_quantize(ks)
         vq, vsc = _kv_quantize(vs)
-        return logits, {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
-    return logits, {"k": ks.to(cfg.dtype), "v": vs.to(cfg.dtype)}
+        cache = {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+    else:
+        cache = {"k": ks.to(cfg.dtype), "v": vs.to(cfg.dtype)}
+    if cache_split is not None:
+        cache = {name: cut_cache(t, cache_split, head_dim=not name.endswith("_scale"))
+                 for name, t in cache.items()}
+    return logits, cache
 
 
-def decode_step(params, cache, token, pos, cfg: ModelConfig, *, block_table=None):
+def cut_cache(t, split, *, head_dim: bool = True):
+    """The rank's block of a whole-sequence cache leaf (L, B, S, H, D)
+    under a :class:`~repro_torch.distributed.tensor_parallel.CacheSplit`:
+    its span of S and (``head_dim``) its block of D."""
+    if split.seq:
+        n = 1
+        for a in split.seq:
+            n *= a.mp
+        s_loc = t.shape[2] // n
+        start = split.span(s_loc)
+        t = t[:, :, start:start + s_loc]
+    if head_dim and split.dim is not None:
+        t = t.chunk(split.dim.mp, -1)[split.dim.rank]
+    return t.contiguous()
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig, *, block_table=None,
+                cache_split=None):
     """One token per row: token (B, 1), or (B, 1, d) embeddings for the
     embeddings input mode.  With ``block_table`` (B, n) the
     cache leaves are paged pools (L, P, ps, ...) and ``pos`` (B,) holds each
     row's logical position; without, they are the dense (L, B, S_max, ...)
     cache of :func:`init_cache` and ``pos`` is a scalar (every row) or a
     (B,) vector.  Returns ``(logits (B, 1, V) f32, cache)``; the token's KV
-    is written in place and the same dictionary is returned."""
+    is written in place and the same dictionary is returned.
+
+    Under tensor parallelism the logits are the rank's vocabulary block
+    where the vocabulary is split, and the cache is the rank's block under
+    the rules: ``cache_split`` (:func:`tensor_parallel.cache_split`) where
+    they cut its sequence or head dim (:func:`block_decode`)."""
     if cfg.input_mode == "embeddings" and token.dim() == 3:
         x = token.to(cfg.dtype)
     else:
-        x = params["embed"][token.long()]
+        x = _embed_tokens(params, token, cfg)
     if torch.is_tensor(pos) and pos.dim() == 1:
         cos, sin = rope_tables(pos.long()[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     else:
@@ -480,7 +720,7 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, *, block_table=None
                          cos, sin, cfg,
                          cache_ks=cache["k_scale"][layer] if int8_kv else None,
                          cache_vs=cache["v_scale"][layer] if int8_kv else None,
-                         paged=paged)
+                         paged=paged, split=cache_split)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return _lm_head(params, x, cfg), cache
 
@@ -511,7 +751,7 @@ def verify_step(params, cache, tokens, pos, cfg: ModelConfig, *, block_table):
     (decode row, speculative verify block, prefill chunk), as in the JAX
     package.
     """
-    x = params["embed"][tokens.long()]
+    x = _embed_tokens(params, tokens, cfg)
     T = tokens.shape[1]
     span = torch.arange(T, device=pos.device)
     cos, sin = rope_tables(pos.long()[:, None] + span[None, :],
@@ -531,4 +771,4 @@ def verify_step(params, cache, tokens, pos, cfg: ModelConfig, *, block_table):
 
 __all__ = ["init_params", "init_cache", "forward", "loss_fn", "prefill", "decode_step",
            "verify_step", "layer_windows", "block_forward", "block_decode",
-           "block_verify"]
+           "block_verify", "cut_cache"]

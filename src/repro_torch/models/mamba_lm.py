@@ -15,22 +15,25 @@ card, their plain versions on the CPU.  Decode is the plain recurrence, and
 the hybrid's decode attention the plain masked sdpa over its dense cache,
 as in the JAX package.  :func:`loss_fn` trains through
 ``forward(..., use_kernel=False)``: the plain SSD and attention on either
-device, each Mamba-2 layer under ``lm._remat``.
+device, each Mamba-2 layer under ``lm._remat``.  The hybrid's shared block
+is ``lm.block_forward`` / ``lm.block_decode``.
+
+Under tensor parallelism each Mamba-2 mixer runs on the rank's SSM heads
+(``ssm.mamba2_block`` with its model group) where they divide ``model``,
+and the shared block and the vocabulary as in :mod:`repro_torch.models.lm`.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import sdpa
-from repro_torch.models.common import (
-    ModelConfig, apply_rope, gated_mlp, generator, init_dense, lm_loss, rms_norm,
-    rope_tables,
-)
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import model_dim
+from repro_torch.models.common import ModelConfig, generator, init_dense, rms_norm, rope_tables
 from repro_torch.models.lm import (
-    _lm_head, _prefill_attention, _project_qkv, _remat, init_block_params,
+    _cross_entropy, _embed_tokens, _lm_head, _remat, block_decode, block_forward, cut_cache,
+    init_block_params,
 )
 from repro_torch.models.ssm import mamba2_block
-from repro_torch.serving import kvcache
 
 
 # ---------------------------------------------------------------------------------
@@ -96,17 +99,32 @@ def _n_attn_calls(cfg: ModelConfig) -> int:
 # forward (prefill)
 # ---------------------------------------------------------------------------------
 
-def _shared_attn_forward(x, params, cos, sin, cfg: ModelConfig, use_kernel: bool):
-    bp = params["shared_attn"]
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    q, k, v = _project_qkv(h, bp, cfg)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    o = _prefill_attention(q, k, v, -1, use_kernel)
-    x = x + o.reshape(*x.shape[:2], -1) @ bp["wo"]
-    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    f = gated_mlp(h, bp["mlp"]["w_gate"], bp["mlp"]["w_up"], bp["mlp"]["w_down"])
-    return x + f, (k, v)
+def _mamba(x, bp, cfg: ModelConfig, **kw):
+    """``mamba2_block`` of the layer: split over ``model`` under tensor
+    parallelism where its SSM heads divide it
+    (:func:`tensor_parallel.mamba_split`), else on its leaves whole (a
+    block gathered)."""
+    g = tp.model_group()
+    if g is not None and tp.mamba_split(cfg, g.mp):
+        return mamba2_block(x, bp, cfg.ssm, g=g, **kw)
+    if g is not None:
+        heads, d_in = tp.ssm_heads(cfg), cfg.ssm.expand * cfg.d_model
+        full = lambda k: heads if k in ("w_dt", "A_log", "D", "dt_bias") else d_in
+        bp = {k: v if model_dim(k) is None else tp.whole(v, model_dim(k), full(k), g)
+              for k, v in bp.items()}
+    return mamba2_block(x, bp, cfg.ssm, **kw)
+
+
+def _whole_window(cv, cfg: ModelConfig):
+    """A layer's conv window (B, w, channels) whole: where the mixer ran
+    split, the rank's x channels gathered over ``model`` (B and C each rank
+    holds whole)."""
+    g = tp.model_group()
+    if g is None or not tp.mamba_split(cfg, g.mp):
+        return cv
+    bc = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+    return torch.cat([tp.gather_over_model(cv[..., :-bc], 2, g, partial=False),
+                      cv[..., -bc:]], dim=-1)
 
 
 def forward(params, batch, cfg: ModelConfig, *, use_kernel: bool = True,
@@ -118,8 +136,14 @@ def forward(params, batch, cfg: ModelConfig, *, use_kernel: bool = True,
     layer runs under ``lm._remat``.  ``use_kernel`` (the default, serving)
     takes the SSD and flash kernels on the card; :func:`loss_fn` passes
     False, the plain SSD (``ssd_chunked(use_kernel=False)``) and the JAX
-    non-kernel attention."""
-    x = params["embed"][batch["tokens"].long()]
+    non-kernel attention.  The hybrid's shared block is ``lm.block_forward``.
+
+    Under tensor parallelism each region runs on the rank's blocks
+    (:func:`_mamba`, ``lm.block_forward``): the logits are the rank's
+    vocabulary block where the vocabulary is split, ``ssm`` the rank's
+    heads, ``attn_k`` / ``attn_v`` the kv heads the rank holds, ``conv``
+    whole."""
+    x = _embed_tokens(params, batch["tokens"], cfg)
     S = x.shape[1]
     cos = sin = None
     if cfg.shared_attn_every:
@@ -127,8 +151,8 @@ def forward(params, batch, cfg: ModelConfig, *, use_kernel: bool = True,
                                cfg.resolved_head_dim, cfg.rope_theta)
 
     def mamba_body(x, bp):
-        y, st, cv = mamba2_block(rms_norm(x, bp["ln"], cfg.norm_eps), bp, cfg.ssm,
-                                 use_kernel=use_kernel)
+        y, st, cv = _mamba(rms_norm(x, bp["ln"], cfg.norm_eps), bp, cfg,
+                           use_kernel=use_kernel)
         return x + y, st, cv
 
     mamba_body = _remat(mamba_body, cfg)
@@ -138,13 +162,14 @@ def forward(params, batch, cfg: ModelConfig, *, use_kernel: bool = True,
         sts.append(st)
         cvs.append(cv)
         if _attn_after(cfg, layer):
-            x, kv = _shared_attn_forward(x, params, cos, sin, cfg, use_kernel)
+            x, kv, _ = block_forward(x, params["shared_attn"], -1, cos, sin, cfg,
+                                     use_kernel=use_kernel)
             attn_kv.append(kv)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _lm_head(params, x, cfg)
     if not collect_cache:
         return logits, 0.0
-    cache = {"ssm": torch.stack(sts), "conv": torch.stack(cvs)}
+    cache = {"ssm": torch.stack(sts), "conv": torch.stack([_whole_window(c, cfg) for c in cvs])}
     if cfg.shared_attn_every:
         cache["attn_k"] = torch.stack([k for k, _ in attn_kv])
         cache["attn_v"] = torch.stack([v for _, v in attn_kv])
@@ -156,7 +181,7 @@ def loss_fn(params, batch, cfg: ModelConfig):
     cross-entropy (:func:`~repro_torch.models.common.lm_loss`) through
     :func:`forward` without the kernels."""
     logits, _ = forward(params, batch, cfg, use_kernel=False)
-    loss = lm_loss(logits, batch["targets"])
+    loss = _cross_entropy(logits, batch["targets"], cfg)
     return loss, {"ce": loss}
 
 
@@ -182,9 +207,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> dict:
     return cache
 
 
-def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None):
+def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
+            cache_split=None):
     """Run the prompt -> (last-position logits (B, 1, V) f32, cache); the
-    hybrid's attention caches are padded to ``max_len``."""
+    hybrid's attention caches are padded to ``max_len``.  Under tensor
+    parallelism the logits are the rank's vocabulary block where the
+    vocabulary is split (:func:`forward`), and ``cache_split`` cuts the
+    attention caches as ``lm.prefill`` does."""
     logits, cache = forward(params, batch, cfg, collect_cache=True)
     S = batch["tokens"].shape[1]
     max_len = max_len or S
@@ -192,19 +221,25 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None):
         pad = (0, 0, 0, 0, 0, max_len - S)
         cache["attn_k"] = torch.nn.functional.pad(cache["attn_k"], pad)
         cache["attn_v"] = torch.nn.functional.pad(cache["attn_v"], pad)
+    if cfg.shared_attn_every and cache_split is not None:
+        for name in ("attn_k", "attn_v"):
+            cache[name] = cut_cache(cache[name], cache_split)
     return logits[:, -1:], cache
 
 
-def decode_step(params, cache, token, pos, cfg: ModelConfig):
+def decode_step(params, cache, token, pos, cfg: ModelConfig, *, cache_split=None):
     """One token per row: token (B, 1).  Returns ``(logits (B, 1, V) f32,
     cache)``; the cache is updated in place and the same dictionary is
     returned.
 
     The pure SSM stack ignores ``pos``.  The hybrid's shared attention
-    takes one position for every row (an int or a 0-d tensor), as the JAX
-    ``decode_step`` does: its K/V are written at ``pos`` of the call's dense
-    cache and the query attends keys ``[0, pos]``."""
-    x = params["embed"][token.long()]
+    (``lm.block_decode``) takes one position for every row (an int or a
+    0-d tensor), as the JAX ``decode_step`` does: its K/V are written at
+    ``pos`` of the call's dense cache and the query attends keys
+    ``[0, pos]``; ``cache_split`` as in ``lm.decode_step``.  Under tensor
+    parallelism the logits are the rank's vocabulary block where the
+    vocabulary is split."""
+    x = _embed_tokens(params, token, cfg)
     every = cfg.shared_attn_every
     cos = sin = None
     if every:
@@ -212,30 +247,19 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig):
             raise ValueError("the hybrid's decode_step takes one position for all rows "
                              "(as repro.models.mamba_lm.decode_step does), not a vector")
         pos = int(pos)
-        ops = kvcache.DenseScalarOps(x.device)
         cos, sin = rope_tables(torch.tensor([pos], device=x.device),
                                cfg.resolved_head_dim, cfg.rope_theta)
     call = 0
     for layer, bp in enumerate(params["blocks"]):
         h = rms_norm(x, bp["ln"], cfg.norm_eps)
-        y, st, cv = mamba2_block(h, bp, cfg.ssm, state=cache["ssm"][layer],
-                                 conv_state=cache["conv"][layer], decode=True)
+        y, st, cv = _mamba(h, bp, cfg, state=cache["ssm"][layer],
+                           conv_state=cache["conv"][layer], decode=True)
         x = x + y
         cache["ssm"][layer] = st
-        cache["conv"][layer] = cv
+        cache["conv"][layer] = _whole_window(cv, cfg)
         if _attn_after(cfg, layer):
-            bpa = params["shared_attn"]
-            h = rms_norm(x, bpa["ln1"], cfg.norm_eps)
-            q, k, v = _project_qkv(h, bpa, cfg)
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-            ck = ops.write(cache["attn_k"][call], k, pos)
-            cv_ = ops.write(cache["attn_v"][call], v, pos)
-            o = sdpa(q, ck, cv_, ops.mask(ck.shape[1], pos, -1))
-            x = x + o.reshape(*x.shape[:2], -1) @ bpa["wo"]
-            h2 = rms_norm(x, bpa["ln2"], cfg.norm_eps)
-            x = x + gated_mlp(h2, bpa["mlp"]["w_gate"], bpa["mlp"]["w_up"],
-                              bpa["mlp"]["w_down"])
+            x = block_decode(x, params["shared_attn"], -1, cache["attn_k"][call],
+                             cache["attn_v"][call], pos, cos, sin, cfg, split=cache_split)
             call += 1
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return _lm_head(params, x, cfg), cache

@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import model_dim
 from repro_torch.kernels.ssd.ops import ssd_intra, ssd_intra_plain
 from repro_torch.models.common import SSMConfig
 
@@ -118,7 +120,7 @@ def ssd_decode_step(x1, dt1, A, B1, C1, D, state):
 
 
 def mamba2_block(x, params, cfg: SSMConfig, *, use_kernel: bool = False,
-                 state=None, conv_state=None, decode: bool = False):
+                 state=None, conv_state=None, decode: bool = False, g=None):
     """Full Mamba-2 mixer.
 
     x: (b, s, d).  params: w_z/w_x (d, d_in), w_bc (d, 2*g*n), w_dt (d, h),
@@ -128,50 +130,77 @@ def mamba2_block(x, params, cfg: SSMConfig, *, use_kernel: bool = False,
     In decode mode s == 1 and (state, conv_state) carry the recurrence;
     conv_state: (b, w, d_in + 2*g*n).  Returns (y, new_state,
     new_conv_state).
+
+    ``g``, a :class:`~repro_torch.distributed.tensor_parallel.ModelGroup`:
+    the mixer split over ``model`` on its SSM heads.  ``w_z``, ``w_x``,
+    ``w_dt``, ``conv_x``, ``A_log``, ``D``, ``dt_bias`` and ``norm`` hold
+    the rank's heads (its ``d_in / mp`` channels) and the SSD runs on them;
+    the replicated ``w_bc`` / ``conv_bc`` enter through ``copy_to_model``
+    (B and C, one group, are computed on every rank; each rank's gradient
+    of them is a share), as does x; the gated RMSNorm means over the whole ``d_in``, its
+    sum of squares summed over ``model`` both ways; ``out_proj`` is
+    row-parallel, its output summed over ``model``.  ``state`` is the
+    rank's heads; ``conv_state`` is whole (the rules replicate it) and the
+    rank reads its channels; the returned window is the rank's: its x
+    channels, then B and C (a caller that keeps it gathers it whole).
     """
     b, s, d = x.shape
-    d_in = cfg.expand * d
-    h = d_in // cfg.head_dim
-    g, n, w = cfg.n_groups, cfg.d_state, cfg.conv_width
+    d_in_all = cfg.expand * d
+    d_in = params["w_x"].shape[1]
+    h = params["w_dt"].shape[1]
+    gn, n, w = cfg.n_groups, cfg.d_state, cfg.conv_width
+    w_bc, conv_bc = params["w_bc"], params["conv_bc"]
+    if g is not None:
+        for name in ("w_z", "w_x", "conv_x", "norm", "out_proj"):
+            tp.expect_block(params[name], model_dim(name), d_in_all, g)
+        x = tp.copy_to_model(x, g)
+        w_bc, conv_bc = tp.copy_to_model(w_bc, g), tp.copy_to_model(conv_bc, g)
 
     z = x @ params["w_z"]                                         # (b, s, d_in)
-    xBC = torch.cat([x @ params["w_x"], x @ params["w_bc"]], dim=-1)
+    xBC = torch.cat([x @ params["w_x"], x @ w_bc], dim=-1)
     dt = x @ params["w_dt"]
     dt = F.softplus(dt.float() + params["dt_bias"])               # (b, s, h)
-    conv_w = torch.cat([params["conv_x"], params["conv_bc"]], dim=-1)
+    conv_w = torch.cat([params["conv_x"], conv_bc], dim=-1)
 
     # depthwise causal conv over (x, B, C)
     if decode:
+        if g is not None:             # the rank's x channels and B, C of the window
+            conv_state = torch.cat([conv_state[..., g.rank * d_in:(g.rank + 1) * d_in],
+                                    conv_state[..., d_in_all:]], dim=-1)
         new_conv = torch.cat([conv_state[:, 1:], xBC[:, :1].to(conv_state.dtype)], dim=1)
         xBC = torch.einsum("bwc,wc->bc", new_conv, conv_w)[:, None]
         conv_out_state = new_conv
     else:
         pad = torch.zeros((b, w - 1, xBC.shape[-1]), dtype=xBC.dtype, device=x.device)
         xp = torch.cat([pad, xBC], dim=1)
-        conv_out_state = xp[:, -w:]     # the last w pre-conv inputs (decode carry)
+        conv_out_state = xp[:, -w:].clone()     # the last w pre-conv inputs (decode
+                                                # carry), not a view holding all of xp
         xBC = sum(xp[:, i:i + s] * conv_w[i][None, None] for i in range(w))
     xBC = F.silu(xBC)
-    xs, B, C = torch.split(xBC, [d_in, g * n, g * n], dim=-1)
+    xs, B, C = torch.split(xBC, [d_in, gn * n, gn * n], dim=-1)
     A = -torch.exp(params["A_log"].float())                       # (h,) negative
-
     if decode:
         y, new_state = ssd_decode_step(
-            xs.reshape(b, h, cfg.head_dim), dt[:, 0], A, B.reshape(b, g, n),
-            C.reshape(b, g, n), params["D"], state)
+            xs.reshape(b, h, cfg.head_dim), dt[:, 0], A, B.reshape(b, gn, n),
+            C.reshape(b, gn, n), params["D"], state)
         y = y.reshape(b, 1, d_in)
     else:
         y, new_state = ssd_chunked(
-            xs.reshape(b, s, h, cfg.head_dim), dt, A, B.reshape(b, s, g, n),
-            C.reshape(b, s, g, n), params["D"], cfg.chunk, use_kernel=use_kernel,
+            xs.reshape(b, s, h, cfg.head_dim), dt, A, B.reshape(b, s, gn, n),
+            C.reshape(b, s, gn, n), params["D"], cfg.chunk, use_kernel=use_kernel,
             initial_state=state, return_state=True)
         y = y.reshape(b, s, d_in)
 
-    # gated RMSNorm (Mamba-2 normalizes y * silu(z))
+    # gated RMSNorm (Mamba-2 normalizes y * silu(z)), over the whole d_in
     yz = y * F.silu(z)
-    var = yz.float().square().mean(dim=-1, keepdim=True)
+    if g is None:
+        var = yz.float().square().mean(dim=-1, keepdim=True)
+    else:
+        var = tp.sum_both_ways(yz.float().square().sum(dim=-1, keepdim=True), g) / d_in_all
     yz = (yz.float() * torch.rsqrt(var + 1e-5)).to(x.dtype)
     yz = yz * params["norm"]
-    return yz @ params["out_proj"], new_state, conv_out_state
+    out = yz @ params["out_proj"]
+    return (out if g is None else tp.sum_over_model(out, g)), new_state, conv_out_state
 
 
 __all__ = ["ssd_chunked", "ssd_decode_step", "mamba2_block"]

@@ -92,6 +92,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *, microbatches: int = 1
 
     train_step.grads_of = grads_of
     train_step.update = update
+    train_step.cfg = model.cfg          # the sharded step's layout rule reads it
     return train_step
 
 

@@ -389,7 +389,8 @@ def _moe_ep(rank, args):
     rows, averaged (equal shares of targets): the batch mean when each
     shard routes its own tokens, as both sharded steps do; at one data
     rank, the one-device step itself.  Every MoE dispatch's dropped pairs
-    are counted."""
+    are counted.  Both sharded steps run the tensor-parallel layout
+    (attention, the vocabulary and, under EP, the experts split)."""
     import numpy as np
 
     from repro_torch.checkpoint import load_checkpoint
@@ -486,6 +487,202 @@ def _named_leaves(tree, prefix=""):
     if isinstance(tree, (list, tuple)):
         return [p for i, v in enumerate(tree) for p in _named_leaves(v, f"{prefix}{i}/")]
     return [(prefix[:-1], tree)]
+
+
+# ---------------------------------------------------------------------------------
+# the tensor-parallel (Megatron) layout
+# ---------------------------------------------------------------------------------
+
+def _tensor_parallel(rank, args):
+    """The tensor-parallel layout on 8 gloo ranks: (a) the sharded step on
+    each mesh of ``args["meshes"]`` for each arch, its f32 smoke parameters
+    and (8, 32) batch from files, against the JAX package's one-device
+    loss and gradients (files, computed in the test process) and the
+    port's one-device step (loss, every gradient leaf, the parameters and
+    second moments after one step); ``sharding.gather_whole`` counted, so
+    only the leaves of whole regions are gathered; (b) ``vocab_cross_entropy``
+    against ``lm_loss``; (c) ``prefill`` and one ``decode_step`` on the
+    rank's blocks at each cache placement, against the one-device ones."""
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import moe_ep, tensor_parallel
+    from repro_torch.distributed.sharding import (
+        _block,
+        batch_sharding,
+        cache_sharding,
+        param_sharding,
+        place,
+        shard_params,
+        sharded_loss_and_grads,
+        sharded_step,
+        split_blocks,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import lm_loss
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.pytree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.training import make_train_step, train_state_shardings
+
+    from repro_torch.distributed import sharding
+
+    gathered = []
+    plain_gather = sharding.gather_whole
+
+    def counting_gather(x):
+        gathered.append(isinstance(x, DTensor))
+        return plain_gather(x)
+
+    result = {"step": {}, "decode": {}}
+    meshes = {tuple(m): make_mesh(tuple(m), ("data", "model"), device="cpu")
+              for m in args["meshes"]}
+    for arch in args["archs"]:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+        model = build_model(cfg, device="cpu")
+        params, _ = load_checkpoint(args["ckpt"][arch], model.abstract_params(), device="cpu")
+        batch = {k: torch.from_numpy(np.load(v)) for k, v in args["batch"][arch].items()}
+        names = [k for k, _ in _named_leaves(params)]
+        step = make_train_step(model, AdamWConfig(lr=1e-3, total_steps=10))
+        ep = cfg.moe is not None
+        for shape, mesh in meshes.items():
+            key = f"{arch}/{'x'.join(map(str, shape))}"
+            jax_ref, _ = load_checkpoint(args["jax_grads"][key], model.abstract_params(),
+                                         device="cpu")
+            p_sh, o_sh, b_sh = train_state_shardings(model, mesh, batch)
+            moe_ep.set_ep_mesh(mesh if ep else None)
+            try:
+                sp = shard_params(params, mesh)
+                so = tree_map(place, adamw_init(params), o_sh)
+                blocks = split_blocks(p_sh, cfg, mesh)
+                sharding.gather_whole = counting_gather
+                n0 = len(gathered)
+                loss, g = sharded_loss_and_grads(step, sp, batch, (p_sh, b_sh))
+                n_full = sum(gathered[n0:])
+                sharding.gather_whole = plain_gather
+                g = [x.full_tensor() for x in tree_leaves(g)]
+                p2, o2, m2 = sharded_step(step, (p_sh, o_sh, b_sh))(sp, so, batch)
+                p2 = [x.full_tensor() for x in tree_leaves(p2)]
+                v2 = [x.full_tensor() for x in tree_leaves(o2["v"])]
+            finally:
+                sharding.gather_whole = plain_gather
+                moe_ep.set_ep_mesh(None)
+            if rank != 0:
+                continue
+            # the one-device reference: the whole batch, or with EP the mean
+            # over the data shards' own steps (each shard routes its tokens)
+            n_data = shape[0] if ep else 1
+            rows = batch["tokens"].shape[0] // n_data
+            parts = [step.grads_of(params, {k: v[d * rows:(d + 1) * rows]
+                                            for k, v in batch.items()})
+                     for d in range(n_data)]
+            loss1 = sum(float(lo) for lo, _ in parts) / n_data
+            g1 = [sum(gs) / n_data for gs in zip(*(tree_leaves(x) for _, x in parts))]
+            p1, o1, _ = step.update(params, tree_unflatten(params, g1), adamw_init(params))
+            layout = tensor_parallel.layout(cfg, shape[1])
+            # the parameters against the one-device step's where its gradient
+            # is not within near_zero of 0 (there AdamW's first step is linear in g)
+            far = [gg.abs() > args["near_zero"] for gg in g1]
+            result["step"][key] = {
+                "layout": layout,
+                "loss": {"jax": float(args["jax_loss"][key]), "one": loss1,
+                         "tp": float(loss), "tp_metric": float(m2["loss"])},
+                "grads_vs_jax": {n: _scaled_err(a, b) for n, a, b in
+                                 zip(names, g, tree_leaves(jax_ref))},
+                "grads_vs_one": {n: _scaled_err(a, b) for n, a, b in zip(names, g, g1)},
+                "one_vs_jax": {n: _scaled_err(a, b) for n, a, b in
+                               zip(names, g1, tree_leaves(jax_ref))},
+                "params_vs_one": max(float(((a - b).abs() * f).max())
+                                     for a, b, f in zip(p2, tree_leaves(p1), far)),
+                "params_vs_one_all": max(float((a - b).abs().max())
+                                         for a, b in zip(p2, tree_leaves(p1))),
+                "near_zero": {"excluded": sum(int((~f).sum()) for f in far),
+                              "of_them_zero": sum(int((gg == 0).sum()) for gg in g1),
+                              "elements": sum(gg.numel() for gg in g1)},
+                # the one-device AdamW update of the tensor-parallel step's own
+                # gradients: the sharded update, held apart from gradient noise
+                "params_vs_update": max(
+                    float((a - b).abs().max()) for a, b in zip(p2, tree_leaves(step.update(
+                        params, tree_unflatten(params, g), adamw_init(params))[0]))),
+                "params_worst": max(((float((a - b).abs().max()), n,
+                                      float(gg.flatten()[(a - b).abs().argmax()]))
+                                     for n, a, b, gg in zip(names, p2, tree_leaves(p1), g1)),
+                                    key=lambda t: t[0]),
+                "v_vs_one": max(_scaled_err(a, b) for a, b in zip(v2, tree_leaves(o1["v"]))),
+                "blocks": sum(tree_leaves(blocks)),
+                "whole_leaves": len(tree_leaves(blocks)) - sum(tree_leaves(blocks)),
+                "gathered_leaves": n_full,
+            }
+
+    # (b) the vocabulary-parallel cross-entropy on a (2, 4) mesh's model axis
+    mesh = meshes[(2, 4)]
+    with tensor_parallel.tp_mesh(mesh):
+        g = tensor_parallel.model_group()
+        rng = np.random.default_rng(5)
+        logits = torch.from_numpy(rng.normal(size=(3, 9, 64)).astype(np.float32) * 3)
+        targets = torch.from_numpy(rng.integers(0, 64, (3, 9)))
+        targets[0, 4:] = -1
+        targets[2, 1] = -7
+        whole = logits.clone().requires_grad_(True)
+        ref = lm_loss(whole, targets)
+        ref.backward()
+        block = logits.chunk(g.mp, -1)[g.rank].clone().requires_grad_(True)
+        got = tensor_parallel.vocab_cross_entropy(block, targets, g)
+        got.backward()
+        all_masked = targets.clone().fill_(-1)
+        zero = tensor_parallel.vocab_cross_entropy(logits.chunk(g.mp, -1)[g.rank], all_masked, g)
+        result["ce"] = {"loss": [float(ref), float(got)],
+                        "grad_err": _scaled_err(block.grad, whole.grad.chunk(g.mp, -1)[g.rank]),
+                        "all_masked": float(zero)}
+
+    # (c) prefill and one decode step on the rank's blocks, per cache placement
+    for name, (arch, shape, B) in args["decode"].items():
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+        model = build_model(cfg, device="cpu")
+        params, _ = load_checkpoint(args["ckpt"][arch], model.abstract_params(), device="cpu")
+        mesh = meshes[tuple(shape)]
+        s_max, s0 = args["decode_len"]
+        rng = np.random.default_rng(17)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, s0 + 1)).astype(np.int32))
+        with torch.no_grad():
+            lp1, cache1 = model.prefill(params, {"tokens": toks[:, :s0]}, max_len=s_max)
+            pre1 = tree_map(lambda t: t.clone(), cache1)
+            ld1, cache1 = model.decode_step(params, cache1, toks[:, s0:], s0)
+        c_sh = cache_sharding(pre1, cfg, mesh)
+        p_sh = param_sharding(params, mesh)
+        lparams = tree_map(lambda t, sh: _block(t, mesh, sh.placements), params, p_sh)
+        rows = batch_sharding({"t": toks}, mesh)["t"]
+        ltoks = _block(toks, mesh, rows.placements)
+        split = tensor_parallel.cache_split(c_sh["attn_k" if "attn_k" in c_sh else "k"])
+        vocab = tensor_parallel.vocab_split(cfg, shape[1])
+        coord = mesh.get_coordinate()
+
+        def logit_block(t):
+            t = _block(t, mesh, rows.placements)
+            return t.chunk(shape[1], -1)[coord[1]] if vocab else t
+
+        with torch.no_grad(), tensor_parallel.tp_mesh(mesh):
+            lp, cache = model.prefill(lparams, {"tokens": ltoks[:, :s0]}, max_len=s_max,
+                                      cache_split=split)
+            pre_err = max(_scaled_err(cache[k], _block(pre1[k], mesh, c_sh[k].placements))
+                          for k in cache)
+            ld, cache = model.decode_step(lparams, cache, ltoks[:, s0:], s0, cache_split=split)
+        result["decode"][name] = {
+            "placements": {k: [str(p) for p in c_sh[k].placements] for k in c_sh},
+            "split": None if split is None else {"seq": [a.mp for a in split.seq],
+                                                 "dim": split.dim and split.dim.mp},
+            "layout": tensor_parallel.layout(cfg, shape[1]),
+            "prefill_logits": _scaled_err(lp, logit_block(lp1)),
+            "prefill_cache": pre_err,
+            "decode_logits": _scaled_err(ld, logit_block(ld1)),
+            "decode_cache": max(_scaled_err(cache[k], _block(cache1[k], mesh, c_sh[k].placements))
+                                for k in cache),
+            "shapes_ok": all(tuple(cache[k].shape) == tuple(_block(cache1[k], mesh,
+                                                                   c_sh[k].placements).shape)
+                             for k in cache)}
+    return result
 
 
 # ---------------------------------------------------------------------------------

@@ -1140,3 +1140,51 @@ def test_restore_resharded_holds_only_its_blocks_on_the_card(tmp_path):
     assert r["coordinate"] == [1, 2] and r["equal"] and r["split_leaves"] > 0, r
     assert r["peak_bytes"] <= 1.01 * r["local_bytes"] + 8 * 2**20, r
     assert r["local_bytes"] < r["whole_bytes"] / 2, r
+
+
+def _tp_part(part: str, tmp_path) -> str:
+    """``tools/train_phase.py --parts <part>``: phase 13's part on gloo
+    ranks sharing the card; its output."""
+    from pathlib import Path
+    tool = Path(__file__).resolve().parents[1] / "tools" / "train_phase.py"
+    out = _run_child([str(tool), "--parts", part], tmp_path, timeout=600)
+    print(out)
+    return out
+
+
+@pytest.mark.cuda
+def test_tp_sharded_step_on_two_gloo_ranks(tmp_path):
+    """Phase 13a: the tensor-parallel sharded step at mesh (1, 2),
+    qwen2.5-3b at full width and 4 layers, B 4 x S 512: its f32 loss within
+    1e-6 relative and every gradient leaf within 1e-5 of its largest
+    magnitude of the one-device step's on the card; 3 bf16 steps with
+    finite losses."""
+    require_cuda()
+    out = _tp_part("13a", tmp_path)
+    lines = [line for line in out.splitlines() if line.startswith("[tp] 13a")]
+    assert len(lines) == 2 and all(line.endswith(": ok") for line in lines), out
+
+
+@pytest.mark.cuda
+def test_tp_prefill_launches_flash_on_every_rank(tmp_path):
+    """Phase 13b: ``prefill`` on the rank's blocks at mesh (1, 2) runs the
+    flash-attention kernel on each rank's 8 query heads over its one kv
+    head, once a layer on both ranks, no plain version called; against
+    the f32 prefill within the one-device kernel prefill's error plus bf16
+    tolerance, a gate that both planted faults (the other rank's kv head,
+    ``wo`` unsummed) fail."""
+    require_cuda()
+    out = _tp_part("13b", tmp_path)
+    (line,) = [x for x in out.splitlines() if x.startswith("[tp] 13b")]
+    assert line.endswith(": ok") and "flash launches [4, 4]" in line, out
+
+
+@pytest.mark.cuda
+def test_tp_decode_with_the_sequence_on_model(tmp_path):
+    """Phase 13c: one f32 ``decode_step`` at mesh (1, 4), the cache's
+    sequence on ``model`` (qwen2.5-3b's two kv heads), against the
+    one-device step within 1e-5 of its largest magnitude on every rank."""
+    require_cuda()
+    out = _tp_part("13c", tmp_path)
+    (line,) = [x for x in out.splitlines() if x.startswith("[tp] 13c")]
+    assert line.endswith(": ok") and "'S(2)'" in line, out

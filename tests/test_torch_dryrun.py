@@ -109,16 +109,19 @@ def dry_out(tmp_path_factory):
 def test_dryrun_cell_small_mesh(dry_out):
     """The counterpart of ``tests/test_distributed.py``'s miniature cell:
     olmoe smoke's train step on a (2, 2, 2) pod x data x model mesh is
-    ``ok``, with its FLOPs, bytes, gathers and reductions counted and a
-    peak of live bytes at least its arguments."""
+    ``ok``, with its FLOPs, bytes and reductions counted and a peak of live
+    bytes at least its arguments.  Every region runs split at model size
+    2 (4 heads, 256 words; the 8 experts on their ranks), so the step
+    gathers no leaf: its collectives are all all-reduces."""
     r = dry_out["cells"]["olmoe_train"]
     assert r["status"] == "ok", r
     assert r["devices"] == 8 and r["fits"] and r["fits_by"] == "peak_bytes"
     assert r["cost"]["flops"] > 0 and r["cost"]["bytes accessed"] > 0
     mem = r["memory"]
     assert mem["peak_bytes"] >= mem["argument_bytes"] > 0 and mem["output_bytes"] > 0
+    assert r["layout"]["regions"] == {"attention": "split (kv heads split)", "vocab": "split"}
     kinds = r["collectives"]["count_by_kind"]
-    assert kinds.get("all-gather", 0) > 0 and kinds.get("all-reduce", 0) > 0, kinds
+    assert set(kinds) == {"all-reduce"} and kinds["all-reduce"] > 0, kinds
     assert r["roofline"]["dominant"] in ("compute", "memory", "collective")
     assert set(r["roofline"]) == {"t_compute_s", "t_memory_s", "t_collective_s", "dominant"}
 
@@ -152,15 +155,25 @@ def test_argument_bytes_match_jax_shards(dry_out):
     assert dry_out["cells"]["olmoe_train"]["memory"]["argument_bytes"] == want
 
 
-def test_one_forward_all_reduce_per_moe_layer(dry_out):
+@pytest.mark.parametrize("what", ["moe_layers", "tp_sequence"])
+def test_one_forward_all_reduce_per_moe_layer(what, dry_out):
     """An olmoe-smoke prefill on a (2, 4) data x model mesh (batch 8 x 32:
-    4 rows, 128 tokens a rank) dispatches exactly one collective per MoE
-    layer: an all-reduce over the model group (4 ranks) of the local
-    T x d bf16 activations."""
+    4 rows, 128 tokens a rank).  ``moe_layers``: each MoE layer dispatches
+    exactly one collective, an all-reduce over the model group (4 ranks)
+    of the local T x d bf16 activations.  ``tp_sequence``: the whole
+    forward's collectives in the tensor-parallel layout, in order: the
+    vocabulary-parallel embedding's sum, then per layer the row-parallel
+    ``wo``'s sum and the MoE layer's, each a T x d bf16 all-reduce over
+    the model group; the logits are the rank's vocabulary block (no
+    collective) and the cache holds the rank's kv heads (none)."""
     cfg = get_smoke_config("olmoe-1b-7b")
     T = (8 // 2) * 32
-    want = [["all-reduce", T * cfg.d_model * cfg.dtype.itemsize, 4]] * cfg.n_layers
-    assert dry_out["prefill_events"] == want
+    one = ["all-reduce", T * cfg.d_model * cfg.dtype.itemsize, 4]
+    events = dry_out["prefill_events"]
+    if what == "moe_layers":
+        assert events[2::2] == [one] * cfg.n_layers
+    else:
+        assert events == [one] + [one, one] * cfg.n_layers
 
 
 def test_collective_stats_counts_each_kind(dry_out):
@@ -179,23 +192,34 @@ def test_collective_stats_counts_each_kind(dry_out):
 
 
 def test_dense_prefill_flops_match_analytic(dry_out):
-    """smollm smoke's prefill cell (64 tokens, 2 rows a rank): ``flops``
-    equals, exactly (tolerance 0), the analytic count of its products: per
-    layer the Q, K, V and O projections, the gated MLP's three matmuls and
-    the two attention products over the full S x S square (the plain
-    route masks, it does not skip), and the lm-head at the last
-    position."""
+    """smollm smoke's prefill cell (64 tokens, 2 rows a rank, model size
+    2): ``flops`` equals, exactly (tolerance 0), the rank's analytic count
+    of its products under the tensor-parallel layout: per layer the whole
+    attention (3 heads divide no model axis of 2: the Q, K, V and O
+    projections and the two attention products over the full S x S square,
+    which the plain route masks, it does not skip), the gated MLP's three
+    matmuls on the rank's half of ``d_ff``, and the lm-head at the last
+    position on the rank's half of the vocabulary.  Its collectives, also
+    exactly: the embedding's and each layer's MLP sum (T x d bf16
+    all-reduces over the model group) and each layer's gathered Q, K, V
+    and O weights (bf16 all-gathers, the whole weights' bytes)."""
     r = dry_out["cells"]["smollm_prefill"]
     assert r["status"] == "ok", r
     cfg = get_smoke_config("smollm-135m")
-    B, S = 8 // 4, 64
+    B, S, mp = 8 // 4, 64, 2
     T, d, hd = B * S, cfg.d_model, cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    assert r["layout"]["regions"] == {"attention": "whole", "mlp": "split", "vocab": "split"}
     per_layer = (2 * T * d * (Hq + 2 * Hkv) * hd + 2 * T * Hq * hd * d
-                 + 3 * 2 * T * d * cfg.d_ff + 2 * 2 * B * Hq * S * S * hd)
-    want = cfg.n_layers * per_layer + 2 * B * d * cfg.vocab
+                 + 3 * 2 * T * d * cfg.d_ff // mp + 2 * 2 * B * Hq * S * S * hd)
+    want = cfg.n_layers * per_layer + 2 * B * d * cfg.vocab // mp
     assert r["cost"]["flops"] == want
-    assert r["collectives"]["total_bytes"] == 0          # dense, parameters resident
+    act = T * d * 2
+    weights = 2 * (d * (Hq + 2 * Hkv) * hd + Hq * hd * d)
+    c = r["collectives"]
+    assert c["bytes_by_kind"] == {"all-reduce": act * (1 + cfg.n_layers),
+                                  "all-gather": weights * cfg.n_layers}
+    assert c["count_by_kind"] == {"all-reduce": 1 + cfg.n_layers, "all-gather": 4 * cfg.n_layers}
 
 
 # ---------------------------------------------------------------------------------
@@ -225,6 +249,27 @@ def test_cli_full_config_cell_and_resume(tmp_path):
     again = _cli(out, *args)
     assert again.count("[skip-done]") == 1 and "[cell]" not in again
     assert len(out.read_text().splitlines()) == 1
+
+
+# the gathered layout's per-rank peak for qwen2.5-3b train_4k on the 16x16 mesh,
+# as the dry run measured it before the tensor-parallel layout (PERF.md, §6)
+GATHERED_QWEN_TRAIN_PEAK = 139.12e9
+
+
+def test_qwen_train_cell_peak_below_gathered_layout(tmp_path):
+    """qwen2.5-3b ``CONFIG`` at ``train_4k`` on the 16x16 production mesh
+    through the CLI: ``ok``, attention split with its 2 kv heads gathered,
+    the MLP and the vocabulary split, and a per-rank peak below the
+    gathered layout's 139.12 GB, within one H100's 80 GB."""
+    out = tmp_path / "qwen.jsonl"
+    _cli(out, "--arch", "qwen2.5-3b", "--shape", "train_4k", "--mesh", "single")
+    (r,) = [json.loads(line) for line in out.read_text().splitlines()]
+    assert r["status"] == "ok", r
+    assert r["layout"]["regions"] == {"attention": "split (kv gathered)", "mlp": "split",
+                                      "vocab": "split"}
+    peak = r["memory"]["peak_bytes"]
+    print("qwen2.5-3b train_4k 16x16 peak", peak)
+    assert peak < GATHERED_QWEN_TRAIN_PEAK and r["fits"]
 
 
 def test_full_attention_500k_cell_is_skipped_as_in_jax(dry_out):

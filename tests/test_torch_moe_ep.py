@@ -41,7 +41,13 @@ RANKS = Path(__file__).resolve().parent / "_torch_dist_ranks.py"
 CHILD_TIMEOUT = 300
 BODY_TOL = 2e-6          # the bodies' summed partials, over the largest |output|
 AUX_TOL = 1e-6
-STEP_TOL = 1.2e-6        # the sharded steps, over each leaf's largest magnitude
+# the sharded steps, over each leaf's largest magnitude: both run the
+# tensor-parallel layout, whose row-parallel sums and vocabulary-parallel
+# loss reorder f32 sums (sound: gradients up to 1.49e-6, parameters 6.8e-7;
+# a router or an attention input whose gradient is not summed over `model`:
+# gradients 0.16 to 0.93, parameters 5.6e-5 to 2.6e-4)
+STEP_TOL = 2e-6
+V_TOL = 2 * STEP_TOL     # the second moments: a squared gradient, twice its error
 
 
 @pytest.fixture(autouse=True)
@@ -238,7 +244,7 @@ def _key(arch, mesh):
 @pytest.mark.parametrize("arch,mesh", CASES)
 def test_ep_step_losses_and_no_drops(arch, mesh, ep_out):
     """Losses of the EP and plain sharded steps (and their metrics) within
-    1.2e-6 relative of the one-device reference; the EP step takes
+    2e-6 relative of the one-device reference; the EP step takes
     ``moe_ffn_ep`` in every MoE layer and the plain one never; no pair
     dropped in any compared run, so per-shard and whole-batch routing
     agree; the gradients and outputs keep their placements."""
@@ -260,12 +266,13 @@ def test_ep_step_losses_and_no_drops(arch, mesh, ep_out):
 @pytest.mark.parametrize("arch,mesh", CASES)
 def test_ep_step_matches(arch, mesh, against, what, ep_out):
     """The EP step's gradients (the embeddings, the router and each expert
-    leaf among them), parameters after one step and second moments,
-    leaf by leaf, within 1.2e-6 of each leaf's largest magnitude of the
-    one-device reference and of the plain sharded step on the same mesh."""
+    leaf among them) and parameters after one step within 2e-6, and its
+    second moments within 4e-6, leaf by leaf, of each leaf's largest
+    magnitude of the one-device reference and of the plain sharded step on
+    the same mesh."""
     errs = ep_out[_key(arch, mesh)][f"{what}_vs_{against}"]
     worst = max(errs, key=errs.get)
     print(arch, mesh, against, what, worst, errs[worst])
     assert any(k.endswith("moe/router") for k in errs) and any(
         k.endswith("moe/w_down") for k in errs) and "embed" in errs
-    assert errs[worst] <= STEP_TOL, (worst, errs[worst])
+    assert errs[worst] <= (V_TOL if what == "v" else STEP_TOL), (worst, errs[worst])

@@ -1,6 +1,6 @@
-"""Run ``chip_smoke.py``'s phases 10, 11 and 12 alone: training on the card.
+"""Run ``chip_smoke.py``'s phases 10 to 13 alone: training on the card.
 
-    python3 tools/train_phase.py [--parts a,b,c,d,11,12]
+    python3 tools/train_phase.py [--parts a,b,c,d,11,12,13]
 
 10a: the smoke configs of smollm-135m, mamba2-1.3b and whisper-small at
 float32, card against CPU (one step's loss and gradients, a 5-step curve);
@@ -13,7 +13,10 @@ width, 4 of 36 layers), ``restore_resharded``, compression, a
 provisioning delay, and the parameters restored onto a (2, 4) mesh as one
 rank under the fake backend; 12: the expert-parallel MoE bodies at full
 width, the EP sharded step on a one-rank NCCL mesh (olmoe-1b-7b, 4 of 16
-layers) and the dry run's four cells on the host.  Each part prints what ``chip_smoke.py`` prints for it and fails as it
+layers) and the dry run's four cells on the host; 13: the tensor-parallel
+layout on gloo ranks sharing the card (``13a`` the sharded step at mesh
+(1, 2), ``13b`` the kernel prefill on the rank's blocks, ``13c`` a decode
+step at mesh (1, 4); ``13`` all three).  Each part prints what ``chip_smoke.py`` prints for it and fails as it
 fails: no kernel may launch during a train step.  The card's name and
 power limit come first.  Needs one CUDA card.
 """
@@ -64,6 +67,10 @@ def main() -> int:
             chip_smoke.sharded_train(dev, counters, tmp)
     if "12" in parts:
         chip_smoke.moe_ep_phase(dev, counters)
+    tp_parts = [p for p in ("13a", "13b", "13c") if p in parts or "13" in parts]
+    if tp_parts:
+        torch.cuda.empty_cache()
+        chip_smoke.tp_phase(tp_parts)
     chip_smoke.log(f"[train] parts {sorted(parts)} in {time.perf_counter() - t0:.1f} s")
     return 0
 
