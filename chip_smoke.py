@@ -149,7 +149,19 @@ Phases, each of which fails the run if it fails:
    planted faults must fail that gate), the kernel launched on both ranks
    and no plain version called; 13c one f32 ``decode_step`` at mesh
    (1, 4), where qwen2.5-3b's two kv heads put the cache's sequence on
-   ``model``, against the one-device step.
+   ``model``, against the one-device step;
+14. the port's last modules: 14a the flash kernel causal and not (window
+   -1 and 64, float32 and bf16) against its plain version at whisper-small's
+   encoder shape (B 2, S 1500, 12 / 12 heads of 64) and smollm-135m's (B 8,
+   S 512, 9 / 3), then the bf16 non-causal kernel at the whisper shape
+   timed beside the plain version, non-causal sdpa and the bound (the
+   ``flash_attention[noncausal, whisper-small enc]`` record); 14b
+   ``attention.mha_prefill(use_kernel=True)`` in both modes against the
+   plain route, one launch a call (the record's launches: its non-causal
+   calls); 14c ``examples/torch/quickstart.py`` on the card in a child
+   process (240 s at most); 14d ``python -m repro_torch.lint --selftest``
+   and a run over its default paths on the host (started after phase 2),
+   both exit 0.
 
 The second-to-last line of stdout is the ``kernels`` JSON record (the greedy
 epilogue's launches are phase 5b's plus phase 5c's; a record named
@@ -159,6 +171,7 @@ phase 9b's or 9c's run of that config), the last
 """
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import subprocess
@@ -3625,11 +3638,13 @@ def tp_prefill(rank: int, world: int) -> list:
     for fault in TP_FAULTS:
         try:
             if fault == "wo unsummed":
+                # replint-torch: disable=CPL303 -- 13b's planted fault, restored in finally
                 lm._attn_out = lambda o, bp, cfg, g: o.reshape(*o.shape[:2], -1) @ bp["wo"]
             with torch.no_grad(), tensor_parallel.tp_mesh(mesh):
                 bad = model.prefill(swapped if fault == "other kv head" else local,
                                     {"tokens": toks})
         finally:
+            # replint-torch: disable=CPL303 -- 13b's planted fault, restored in finally
             lm._attn_out = plain_out
         bad = {"logits": bad[0], "k": bad[1]["k"], "v": bad[1]["v"]}
         faults[fault] = ({k: dist_(bad[k], exact[k]) for k in bad}, gate(bad))
@@ -3711,6 +3726,163 @@ def tp_decode(rank: int, world: int) -> list:
     return failures
 
 
+# ---------------------------------------------------------------------------------
+# phase 14: flash attention's non-causal mode, mha_prefill, the examples, the lint
+# ---------------------------------------------------------------------------------
+
+# phase 3's row-5 reading against the plain version (one bf16 step in [2, 4)),
+# and float32's
+FLASH_TOL = {"bfloat16": 1.5625e-2, "float32": 2e-5}
+# (config, B, S, Hq, Hkv, D): whisper-small's encoder (bidirectional; S 1500 is
+# off the 64-row tile) and smollm-135m's bucketed prefill; the first is timed
+NONCAUSAL_SHAPES = (("whisper-small enc", 2, 1500, 12, 12, 64),
+                    ("smollm-135m", 8, 512, 9, 3, 64))
+
+
+def lint_start() -> list:
+    """Phase 14d's children, started at once on the host: the port's lint
+    (``python -m repro_torch.lint``) selftest and its run over the default
+    paths, on this machine's Python."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    return [(args, subprocess.Popen([sys.executable, "-m", "repro_torch.lint", *args], cwd=ROOT,
+                                    env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+            for args in (["--selftest", "-q"], ["-q"])]
+
+
+def lint_finish(procs) -> None:
+    """Phase 14d: both lint runs exit 0 (selftest healthy, 0 findings)."""
+    for args, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        last = text.strip().splitlines()[-1] if text.strip() else "(no output)"
+        log(f"[lint] python -m repro_torch.lint {' '.join(args)}: exit {proc.returncode}; {last}")
+        if proc.returncode != 0:
+            raise AssertionError(f"repro_torch.lint {args} failed: {text[-2000:]}")
+
+
+def check_flash_noncausal(dev, flush) -> dict:
+    """14a: the flash kernel causal and not, window -1 and 64, float32 and
+    bf16, against its plain version at ``NONCAUSAL_SHAPES``; then the bf16
+    non-causal kernel at whisper-small's encoder shape timed beside the
+    plain version, non-causal sdpa and the bound (and the causal kernel at
+    the same shape, printed)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+
+    errs = {}
+    timed = None
+    for shape, B, S, Hq, Hkv, D in NONCAUSAL_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(SEED + 120)
+        q_, k_, v_ = (torch.randn((B, S, h, D), generator=g, device=dev)
+                      for h in (Hq, Hkv, Hkv))
+        if timed is None:
+            timed = (q_, k_, v_)
+        for name in ("float32", "bfloat16"):
+            qq, kk, vv = (t.to(getattr(torch, name)) for t in (q_, k_, v_))
+            for causal in (True, False):
+                for window in (-1, 64):
+                    out = flash_attention(qq, kk, vv, causal=causal,
+                                          window=window if window > 0 else None)
+                    torch.cuda.synchronize()
+                    ref = flash_attention_plain(qq, kk, vv, window, causal=causal)
+                    err = (out.float() - ref.float()).abs().max().item()
+                    log(f"[noncausal] flash_attention {shape} {name} causal={causal} "
+                        f"window={window}: max |kernel - plain| = {err:.3e} "
+                        f"(tol {FLASH_TOL[name]:g})")
+                    if not (err <= FLASH_TOL[name] and torch.isfinite(out).all()):
+                        raise AssertionError(f"flash_attention {shape} {name} causal={causal} "
+                                             f"window={window} disagrees with its plain "
+                                             f"version: {err}")
+                    errs[(shape, name, causal, window)] = err
+
+    q, k, v = (t.bfloat16() for t in timed)
+    B, S, Hq, D = q.shape
+    ms = timed_ms(lambda: flash_attention(q, k, v, causal=False), flush=flush)
+    causal_ms = timed_ms(lambda: flash_attention(q, k, v, causal=True), flush=flush)
+    plain_ms = timed_ms(lambda: flash_attention_plain(q, k, v, -1, causal=False), flush=flush)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=False)
+
+    lib_err = (lib().transpose(1, 2).float()
+               - flash_attention_plain(q, k, v, -1, causal=False).float()).abs().max().item()
+    library_ms = timed_ms(lib, flush=flush)
+    # least time: q, k, v read once, out written once; flops: QK^T and PV over
+    # every (query, key) pair
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4.0 * D * Hq * B * S * S
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    shape = NONCAUSAL_SHAPES[0][0]
+    log(f"[noncausal] flash_attention bf16 {shape} (B {B}, S {S}, {Hq}/{k.shape[2]} heads of "
+        f"{D}): kernel {ms:.4f} ms (causal {causal_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms (|sdpa - plain| {lib_err:.2e}), bound {b_ms:.5f} ms "
+        f"({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); kernel/library "
+        f"{ms / library_ms:.3f}, kernel/bound {ms / b_ms:.1f}")
+    log(f"[noncausal] device time by kernel: "
+        f"{device_us(lambda: flash_attention(q, k, v, causal=False), flush=flush)}; "
+        f"sdpa: {device_us(lib, flush=flush)}")
+    return record(f"flash_attention[noncausal, {shape}]", "flash_attention.cu",
+                  "src/repro/kernels/flash_attention/kernel.py:77",
+                  errs[(shape, "bfloat16", False, -1)], ms, plain_ms, b_ms, b_by, library_ms)
+
+
+def mha_prefill_path(dev) -> int:
+    """14b: ``attention.mha_prefill(use_kernel=True)``, the non-causal
+    kernel's entry point, at whisper-small's encoder shape in bf16, both
+    modes and windows, against the plain route; each call launches the
+    kernel once (the counter zeroed just before, read just after).
+    Returns the non-causal calls' launches."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention_dyn
+    from repro_torch.models.attention import mha_prefill
+
+    shape, B, S, Hq, Hkv, D = NONCAUSAL_SHAPES[0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 121)
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev, dtype=torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    noncausal = 0
+    for causal in (False, True):
+        for window in (None, 64):
+            flash_attention_dyn.launches = 0
+            out = mha_prefill(q, k, v, causal=causal, window=window, use_kernel=True)
+            torch.cuda.synchronize()
+            n = flash_attention_dyn.launches
+            ref = mha_prefill(q, k, v, causal=causal, window=window)
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"[mha_prefill] {shape} bf16 causal={causal} window={window}: {n} flash "
+                f"launch(es), max |kernel route - plain route| = {err:.3e} "
+                f"(tol {FLASH_TOL['bfloat16']:g})")
+            if n != 1 or not err <= FLASH_TOL["bfloat16"]:
+                raise AssertionError(f"mha_prefill(use_kernel=True) causal={causal} "
+                                     f"window={window}: {n} launches, error {err}")
+            noncausal += 0 if causal else n
+    return noncausal
+
+
+def quickstart_on_card(timeout: float = 240) -> None:
+    """14c: ``examples/torch/quickstart.py`` on the card in a child process
+    (the paper's policies on the port's simulator, 20 training steps of
+    smollm-135m's smoke config, 6 requests served through the kernels),
+    killed past ``timeout`` seconds."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "torch" / "quickstart.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    for line in proc.stdout.strip().splitlines()[-4:]:
+        log(f"[quickstart] {line}")
+    log(f"[quickstart] exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0 or "served 6 requests" not in proc.stdout \
+            or "on cuda" not in proc.stdout:
+        raise AssertionError(f"examples/torch/quickstart.py failed: "
+                             f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3746,6 +3918,8 @@ def main() -> int:
         log(f"[build] lib{name}.so: {line}")
         if n_hmma == 0:
             raise AssertionError(f"lib{name}.so holds no tensor-core instruction")
+    lint_procs = lint_start()                 # phase 14d, on the host meanwhile
+    atexit.register(lambda: [p.kill() for _, p in lint_procs if p.poll() is None])
 
     scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
     flush = scratch.zero_
@@ -3837,6 +4011,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp_phase()
 
+    # flash attention's non-causal mode, mha_prefill, the examples, the lint
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    records.append(check_flash_noncausal(dev, scratch.zero_))
+    del scratch
+    noncausal_launches = mha_prefill_path(dev)
+    quickstart_on_card()
+    lint_finish(lint_procs)
+    log(f"[phase14] 14a-14d in {time.perf_counter() - t0:.1f} s")
+
     log(f"[done] greedy_epilogue launches: {launches['greedy_epilogue']} in phase 5b, "
         f"{ssm_launches['greedy_epilogue']} in phase 5c")
     by_kernel = {"paged_mixed_attention": launches["decode_attention_mixed"],
@@ -3853,7 +4038,8 @@ def main() -> int:
                  "paged_decode_attention[olmoe-1b-7b]":
                      olmoe["bucketed"]["decode_attention_paged"],
                  "greedy_epilogue[olmoe-1b-7b]": olmoe["bucketed"]["greedy_epilogue"],
-                 "flash_attention[olmoe-1b-7b]": olmoe["bucketed"]["flash_attention_dyn"]}
+                 "flash_attention[olmoe-1b-7b]": olmoe["bucketed"]["flash_attention_dyn"],
+                 "flash_attention[noncausal, whisper-small enc]": noncausal_launches}
     for arch in ("mixtral-8x22b", "pixtral-12b", "smollm-360m"):
         by_kernel[f"lmhead_greedy[{arch}]"] = families[arch]["fused_lmhead_greedy"]
     for rec in records:

@@ -1,14 +1,18 @@
-// Causal flash attention with a runtime sliding window for Hopper (sm_90a),
-// plain C interface.
+// Flash attention, causal or not, with a runtime sliding window for Hopper
+// (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel flash_attention_fwd (_fa_kernel) in
 // src/repro/kernels/flash_attention/kernel.py: blockwise online-softmax
 // attention over q (B, S, Hq, D) and k/v (B, S, Hkv, D), query head h reading
-// kv head h / group (GQA), key j visible to query i iff j <= i and, when
-// window > 0, j > i - window.  One build serves gemma3's local and global
-// layers: the window is a runtime int.  The prefill path calls it once per
-// layer with S a power-of-two bucket (16 .. 1024); zamba2's shared attention
-// calls it with D = 80.
+// kv head h / group (GQA), key j visible to query i iff j <= i (when causal)
+// and, when window > 0, j > i - window.  The window stays one-sided in both
+// modes, as in the TPU kernel, so with causal == 0 a row sees every later
+// key and no row is empty.  One build serves gemma3's local and global
+// layers and both modes: the window and causal are runtime ints.  The
+// prefill path calls it causal once per layer with S a power-of-two bucket
+// (16 .. 1024); zamba2's shared attention calls it with D = 80;
+// attention.mha_prefill calls it in either mode (whisper-small's encoder
+// length, S = 1500, is not a multiple of the tile: its last tile is ragged).
 //
 // What bounds it on the card: at the prefill shape of smollm-135m (B = 8,
 // S = 512, 9/3 heads of 64, bf16) the causal half is ~2.4 GFLOP against
@@ -23,11 +27,12 @@
 //
 // bf16 design (FA2-style, mma.sync on the tensor cores; mma_bf16.cuh): one
 // block of 4 warps per (query tile of 64 rows, q head, b), each warp owning
-// 16 rows.  Query tiles launch in reverse order, so the longest causal walks
-// start first.  The block walks key tiles of 64 from the first one its
-// window reaches to the diagonal; tiles above the diagonal or wholly outside
-// the window are never read.  Q, K and V stay bf16 in shared memory (rows
-// padded to D + 8 for conflict-free ldmatrix); K and V tiles arrive by
+// 16 rows.  Causal query tiles launch in reverse order, so the longest
+// walks start first.  The block walks key tiles of 64 from the first one its
+// window reaches to the diagonal (causal) or to the last tile (not causal);
+// tiles above the diagonal or wholly outside the window are never read.
+// Q, K and V stay bf16 in shared memory (rows padded to D + 8 for
+// conflict-free ldmatrix); K and V tiles arrive by
 // 16-byte cp.async, double-buffered so tile j + 1 is in flight while tile j
 // is computed.  S = Q K^T and O += P V are m16n8k16 MMAs with f32
 // accumulators; the online softmax runs on the accumulators (one FFMA and
@@ -74,7 +79,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        long long qsb, long long qss, long long qsh,
                        long long ksb, long long kss, long long ksh,
                        long long vsb, long long vss, long long vsh,
-                       int S, int Hq, int Hkv, int window, float sm_scale) {
+                       int S, int Hq, int Hkv, int window, int causal, float sm_scale) {
   constexpr int NJ = D / 16;                 // output columns per thread
   extern __shared__ float smem[];
   float* qsT = smem;                         // [D][kPad]   scaled Q, transposed
@@ -108,8 +113,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  // key tiles from the first one the window reaches to the diagonal
-  const int kt_hi = min((S - 1) / kBK, (q0 + kBQ - 1) / kBK);
+  // key tiles from the first one the window reaches to the diagonal (causal)
+  // or the last one
+  const int kt_hi = causal ? min((S - 1) / kBK, (q0 + kBQ - 1) / kBK) : (S - 1) / kBK;
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
@@ -150,7 +156,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k_pos = k0 + tx + 16 * j;
-        const bool valid = k_pos < S && k_pos <= q_pos &&
+        const bool valid = k_pos < S && (!causal || k_pos <= q_pos) &&
                            (window <= 0 || k_pos > q_pos - window);
         if (!valid) sc[i][j] = -INFINITY;    // marks a masked lane
         row_max = fmaxf(row_max, sc[i][j]);
@@ -224,7 +230,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             long long qsb, long long qss, long long qsh,
                             long long ksb, long long kss, long long ksh,
                             long long vsb, long long vss, long long vsh,
-                            int S, int Hq, int Hkv, int window, float scale_log2) {
+                            int S, int Hq, int Hkv, int window, int causal,
+                            float scale_log2) {
   using repro_mma::cp_async16;
   constexpr int LD = ld_bf16<D>();
   constexpr int CH = D / 8;                   // 16-byte chunks per row
@@ -236,7 +243,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* ks = qs + kBQ * LD;                                 // [2][kBK][LD]
   __nv_bfloat16* vs = ks + 2 * kBK * LD;                             // [2][kBK][LD]
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest causal walks first
+  // causal: the longest walks first
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (Hq / Hkv);
@@ -261,8 +269,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  // key tiles from the first one the window reaches to the diagonal
-  const int kt_hi = min((S - 1) / kBK, (q0 + kBQ - 1) / kBK);
+  // key tiles from the first one the window reaches to the diagonal (causal)
+  // or the last one
+  const int kt_hi = causal ? min((S - 1) / kBK, (q0 + kBQ - 1) / kBK) : (S - 1) / kBK;
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
   stage(kt_lo, 0);
   repro_mma::cp_async_commit();               // group: Q and the first tile
@@ -283,9 +292,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     float s[Warp::NT][4];
     wa.scores(s, qw, ks + buf * kBK * LD, lane);
     const int k0 = kt * kBK;
-    // no pair of this tile needs a test: all keys exist, precede every row,
-    // and lie inside every row's window
-    const bool full = k0 + kBK <= S && k0 + kBK - 1 <= q0 &&
+    // no pair of this tile needs a test: all keys exist, precede every row
+    // (causal), and lie inside every row's window
+    const bool full = k0 + kBK <= S && (!causal || k0 + kBK - 1 <= q0) &&
                       (window <= 0 || k0 > q0 + kBQ - 1 - window);
     if (full) {
       wa.template softmax<false>(s, scale_log2, [](int, int, int) { return true; });
@@ -293,7 +302,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const int kc = k0 + 2 * (lane % 4);
       wa.template softmax<true>(s, scale_log2, [&](int hh, int j, int e) {
         const int qp = row0 + 8 * hh, kp = kc + j * 8 + e;
-        return kp < S && kp <= qp && (window <= 0 || kp > qp - window);
+        return kp < S && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
       });
     }
     wa.pv(s, vs + buf * kBK * LD, lane);
@@ -328,7 +337,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        const long long* st, int B, int S, int Hq, int Hkv, int window,
-                       float sm_scale, cudaStream_t stream) {
+                       int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * D * kPad + kBK * D + kBQ * kPad);
   auto kernel = flash_attention_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -337,14 +346,14 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], S, Hq, Hkv, window, sm_scale);
+      st[4], st[5], st[6], st[7], st[8], S, Hq, Hkv, window, causal, sm_scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
                         const long long* st, int B, int S, int Hq, int Hkv, int window,
-                        float sm_scale, cudaStream_t stream) {
+                        int causal, float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bf16<D>();
   auto kernel = flash_attention_bf16_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -353,7 +362,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kWarpsBf16 * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], S, Hq, Hkv, window,
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], S, Hq, Hkv, window, causal,
       sm_scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -361,24 +370,30 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
 template <bool BF16, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const long long* st, int B, int S, int Hq, int Hkv, int window,
-                   float sm_scale, cudaStream_t stream) {
+                   int causal, float sm_scale, cudaStream_t stream) {
   if constexpr (BF16)
-    return launch_bf16<D>(q, k, v, out, st, B, S, Hq, Hkv, window, sm_scale, stream);
+    return launch_bf16<D>(q, k, v, out, st, B, S, Hq, Hkv, window, causal, sm_scale, stream);
   else
-    return launch_f32<D>(q, k, v, out, st, B, S, Hq, Hkv, window, sm_scale, stream);
+    return launch_f32<D>(q, k, v, out, st, B, S, Hq, Hkv, window, causal, sm_scale, stream);
 }
 
 template <bool BF16>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
                        const long long* st, int B, int S, int Hq, int Hkv, int window,
-                       float sm_scale, cudaStream_t stream) {
+                       int causal, float sm_scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<BF16, 16>(q, k, v, out, st, B, S, Hq, Hkv, window, sm_scale, stream);
-    case 32: return launch<BF16, 32>(q, k, v, out, st, B, S, Hq, Hkv, window, sm_scale, stream);
-    case 64: return launch<BF16, 64>(q, k, v, out, st, B, S, Hq, Hkv, window, sm_scale, stream);
-    case 80: return launch<BF16, 80>(q, k, v, out, st, B, S, Hq, Hkv, window, sm_scale, stream);
-    case 128: return launch<BF16, 128>(q, k, v, out, st, B, S, Hq, Hkv, window, sm_scale, stream);
-    case 256: return launch<BF16, 256>(q, k, v, out, st, B, S, Hq, Hkv, window, sm_scale, stream);
+    case 16:
+      return launch<BF16, 16>(q, k, v, out, st, B, S, Hq, Hkv, window, causal, sm_scale, stream);
+    case 32:
+      return launch<BF16, 32>(q, k, v, out, st, B, S, Hq, Hkv, window, causal, sm_scale, stream);
+    case 64:
+      return launch<BF16, 64>(q, k, v, out, st, B, S, Hq, Hkv, window, causal, sm_scale, stream);
+    case 80:
+      return launch<BF16, 80>(q, k, v, out, st, B, S, Hq, Hkv, window, causal, sm_scale, stream);
+    case 128:
+      return launch<BF16, 128>(q, k, v, out, st, B, S, Hq, Hkv, window, causal, sm_scale, stream);
+    case 256:
+      return launch<BF16, 256>(q, k, v, out, st, B, S, Hq, Hkv, window, causal, sm_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -390,16 +405,18 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
 // the head dim is contiguous.  out is a contiguous (B, S, Hq, D).  D must be
 // 16, 32, 64, 80, 128 or 256; bf16 rows must be 16-byte aligned (pointers
 // and strides multiples of 8 elements).  Returns cudaGetLastError() after
-// the launch.
+// the launch.  causal: 1 = key j <= query i only, 0 = every key (the
+// window, if any, still applies).
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                void* out, const long long* strides, int B, int S, int Hq,
-                               int Hkv, int D, int window, float sm_scale, void* stream) {
+                               int Hkv, int D, int window, int causal, float sm_scale,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return static_cast<int>(dispatch_d<false>(D, q, k, v, out, strides, B, S, Hq, Hkv,
-                                              window, sm_scale, st));
+                                              window, causal, sm_scale, st));
   if (dtype == 1)
     return static_cast<int>(dispatch_d<true>(D, q, k, v, out, strides, B, S, Hq, Hkv,
-                                             window, sm_scale, st));
+                                             window, causal, sm_scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -180,7 +180,7 @@ def paged_decode_attention_split_plain(q1, k_pages, v_pages, block_table, length
                                              pages_per_split=pages_per_split)
 
 
-def _check_pool(name, q, k_pages, v_pages, block_table, rows, k_scale, v_scale):
+def _check_pool(name: str, q, k_pages, v_pages, block_table, rows, k_scale, v_scale):
     """Device, dtype, shape and layout checks shared by both kernels."""
     D = q.shape[-1]
     P, ps, Hkv = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
@@ -224,7 +224,8 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _split_scratch(name, q, k_pages, v_pages, B, Hkv, n, ps, rows, D):
+def _split_scratch(name: str, q, k_pages, v_pages, B: int, Hkv: int, n: int, ps: int,
+                   rows: int, D: int):
     """The bf16 split kernels' checks, plan and f32 partials: (pages per
     split, splits, part_ml (B, Hkv, splits, rows, 2), part_acc (B, Hkv,
     splits, rows, D))."""
@@ -240,6 +241,7 @@ def _split_scratch(name, q, k_pages, v_pages, B, Hkv, n, ps, rows, D):
             torch.empty((B, Hkv, n_splits, rows, D), **f32))
 
 
+# replint-torch: traced -- called from the model's verify step
 def decode_attention_mixed(q, k_pages, v_pages, block_table, starts, *,
                            window: int | None = -1, k_scale=None, v_scale=None):
     """Mixed-span block-table attention over a paged KV pool.
@@ -304,6 +306,7 @@ def _decode_kernel():
     return fn
 
 
+# replint-torch: traced -- called from the model's decode step
 def decode_attention_paged(q1, k_pages, v_pages, block_table, lengths, *,
                            window: int | None = -1, k_scale=None, v_scale=None):
     """Block-table decode attention over a paged KV pool.
@@ -375,6 +378,7 @@ def decode_attention_plain(q1, k_cache, v_cache, pos, *, window: int = -1):
     ``k >= pos - window`` when ``window`` > 0) through the masked sdpa.  A
     row with no visible key (``pos <= 0``) gives zeros, as the kernel's
     denominator clamp does."""
+    # replint-torch: disable=TRC101 -- plain version: CPU tensors only
     pos, window = int(pos), int(window)
     S = k_cache.shape[1]
     lo, hi = _dense_span(S, pos, window)
@@ -456,6 +460,7 @@ def _dense_kernel():
     return fn
 
 
+# replint-torch: traced -- called from the model's decode step
 def decode_attention(q1, k_cache, v_cache, pos, *, window: int | None = None,
                      block_k: int | None = None):
     """One query per row over a dense cache, all rows at one position.
@@ -471,6 +476,9 @@ def decode_attention(q1, k_cache, v_cache, pos, *, window: int | None = None,
     (B, 1, Hq, D) in q1's dtype.
     """
     window = int(window) if window else -1
+    # the kernel takes the position as a host int (the TPU kernel's scalar
+    # prefetch); a device-side position is ROADMAP item 2
+    # replint-torch: disable=TRC101 -- host position, ROADMAP item 2
     pos = int(pos)
     if not q1.is_cuda:
         return decode_attention_plain(q1, k_cache, v_cache, pos, window=window)

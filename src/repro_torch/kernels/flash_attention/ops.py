@@ -1,9 +1,12 @@
-"""Causal flash attention: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernel's wrapper and its plain version.
 
 Counterpart of ``repro.kernels.flash_attention.ops``.  The kernel is
 ``csrc/flash_attention.cu``; :func:`flash_attention_plain` is the same
-function in plain PyTorch (a causal + window mask and sdpa, the
-``use_kernel=False`` branch of the JAX ``lm._prefill_attention``).  The
+function in plain PyTorch (a causal and/or window mask and sdpa, the
+``use_kernel=False`` branch of the JAX ``lm._prefill_attention`` and
+``attention.mha_prefill``).  Both take the JAX kernel's ``causal`` flag;
+the window stays one-sided (key j visible to query i iff j > i - window)
+in either mode.  The
 public layout is the JAX one, (B, S, H, D) in and out; the kernel reads it
 through its strides, with no transposed copy.  The wrapper takes the plain
 version only for tensors on the CPU; on a CUDA tensor it launches the
@@ -23,11 +26,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 
-def flash_attention_plain(q, k, v, window: int = -1):
-    """q: (B, S, Hq, D); k/v: (B, S, Hkv, D) -> (B, S, Hq, D): causal
-    attention, minus the sliding window when ``window`` > 0."""
+def flash_attention_plain(q, k, v, window: int = -1, *, causal: bool = True):
+    """q: (B, S, Hq, D); k/v: (B, S, Hkv, D) -> (B, S, Hq, D): causal (or
+    full) attention, minus the sliding window when ``window`` > 0."""
     S = q.shape[1]
-    mask = attention_mask(S, S, causal=True, window=window if window > 0 else None,
+    mask = attention_mask(S, S, causal=causal, window=window if window > 0 else None,
                           device=q.device)
     return sdpa(q, k, v, mask)
 
@@ -35,7 +38,7 @@ def flash_attention_plain(q, k, v, window: int = -1):
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.load("flash_attention").flash_attention
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -50,17 +53,10 @@ def _readable(t) -> bool:
         t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]))
 
 
-def flash_attention_dyn(q, k, v, window):
-    """Runtime-window causal attention, as the prefill layer loop calls it.
-
-    q: (B, S, Hq, D); k/v: (B, S, Hkv, D), float32 or bf16 alike, the head
-    dim contiguous (a bf16 view whose rows are not 16-byte aligned is
-    copied first); ``window``: int, <= 0 = full causal.  Returns a
-    contiguous (B, S, Hq, D) in q's dtype.
-    """
-    window = int(window)
+def _flash(q, k, v, window: int, causal: bool):
+    """The kernel's launch (the plain version for CPU tensors)."""
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, window)
+        return flash_attention_plain(q, k, v, window, causal=causal)
     refuse_grad("flash_attention", q, k, v)
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -80,21 +76,35 @@ def flash_attention_dyn(q, k, v, window):
     if B and S:
         err = _kernel()(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), ctypes.addressof(strides), B, S, Hq, Hkv, D,
-                        window, D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+                        window, int(causal), D ** -0.5,
+                        torch.cuda.current_stream(q.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
         flash_attention_dyn.launches += 1
     return out
 
 
-flash_attention_dyn.launches = 0        # kernel launches, for the chip smoke run
+# replint-torch: traced -- called from the model's prefill
+def flash_attention_dyn(q, k, v, window: int):
+    """Runtime-window causal attention, as the prefill layer loop calls it.
+
+    q: (B, S, Hq, D); k/v: (B, S, Hkv, D), float32 or bf16 alike, the head
+    dim contiguous (a bf16 view whose rows are not 16-byte aligned is
+    copied first); ``window``: int, <= 0 = full causal.  Returns a
+    contiguous (B, S, Hq, D) in q's dtype.
+    """
+    return _flash(q, k, v, int(window), True)
 
 
-def flash_attention(q, k, v, *, window: int | None = None):
-    """Static-window form of :func:`flash_attention_dyn` (None = full
-    causal).  Causal only: the non-causal form serves ``attention.mha``,
-    which the port does not have."""
-    return flash_attention_dyn(q, k, v, window or -1)
+flash_attention_dyn.launches = 0        # kernel launches (both entry points), for the chip smoke run
+
+
+# replint-torch: traced -- called from the model's prefill
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
+    """Static-window form of :func:`flash_attention_dyn` (None = no
+    window), causal or not: the JAX signature, which
+    ``attention.mha_prefill`` calls."""
+    return _flash(q, k, v, window or -1, bool(causal))
 
 
 __all__ = ["flash_attention", "flash_attention_dyn", "flash_attention_plain"]

@@ -179,6 +179,7 @@ def greedy_max_cluster(index: int) -> int:
     return GREEDY_MAX_CLUSTER if n >= 1 else 8
 
 
+# replint-torch: traced -- called from the serving engine's step
 def greedy_epilogue(logits):
     """logits: (B, V) float32 or bfloat16 -> (token (B,) int32, logprob (B,) f32).
 
@@ -224,7 +225,7 @@ def _partials(N, n_tiles, device):
             torch.empty((N,), dtype=torch.int32, device=device), torch.empty((N,), **f32))
 
 
-def _check_bf16_head(h, w, d, V):
+def _check_bf16_head(h, w, d: int, V: int):
     """The bf16 tensor-core kernel's layouts: d % 16 == 0, 16-byte aligned
     h and w, and w either tied (``embed.T``: strides (1, s), s % 8 == 0) or
     untied ((d, V) with contiguous rows: strides (s, 1), s % 8 == 0 and
@@ -241,6 +242,7 @@ def _check_bf16_head(h, w, d, V):
                          "copies 16 bytes at a time)")
 
 
+# replint-torch: traced -- called from the model's verify step
 def fused_lmhead_greedy(h, w):
     """h: (..., d) hidden states; w: (d, V) lm-head weight (a tied head
     passes ``embed.T`` and the kernel reads the embedding rows).  float32:

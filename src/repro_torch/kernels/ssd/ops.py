@@ -98,6 +98,7 @@ def _kernel():
     return fn
 
 
+# replint-torch: traced -- called from the model's prefill
 def ssd_intra(xb, acs, Bh, Ch):
     """Intra-chunk SSD in the model layout: xb (b, nc, q, h, p); acs
     (b, nc, q, h); Bh/Ch (b, nc, q, h, n); all float32, any strides.

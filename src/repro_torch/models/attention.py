@@ -1,8 +1,9 @@
 """Multi-head attention (GQA / causal / sliding-window) in plain PyTorch.
 
 Counterpart of ``repro.models.attention``; ``sdpa`` is also the plain
-version the attention kernels are held against.  :func:`mha_decode` with
-``use_kernel=True`` runs the dense decode-attention kernel on the card.
+version the attention kernels are held against.  :func:`mha_prefill` and
+:func:`mha_decode` with ``use_kernel=True`` run the flash and the dense
+decode-attention kernels on the card.
 """
 from __future__ import annotations
 
@@ -48,6 +49,26 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def mha_prefill(q, k, v, *, causal: bool = True, window: int | None = None,
+                use_kernel: bool = False) -> torch.Tensor:
+    """Full-sequence attention.  q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D).
+
+    ``use_kernel`` routes through
+    :func:`~repro_torch.kernels.flash_attention.ops.flash_attention` (the
+    CUDA kernel for CUDA tensors, its plain version for CPU ones), which
+    takes one sequence length: Sk must equal Sq there.  The plain route
+    takes any Sk, its mask anchored at key 0 as in the JAX package."""
+    if use_kernel:
+        if k.shape[1] != q.shape[1]:
+            raise ValueError(f"mha_prefill(use_kernel=True): Sk {k.shape[1]} != Sq "
+                             f"{q.shape[1]}; the flash kernel takes one sequence length")
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        return flash_attention(q, k, v, causal=causal, window=window)
+    mask = attention_mask(q.shape[1], k.shape[1], causal=causal, window=window,
+                          device=q.device)
+    return sdpa(q, k, v, mask)
+
+
 def mha_decode(q1, k_cache, v_cache, pos, *, window: int | None = None,
                use_kernel: bool = False) -> torch.Tensor:
     """One-token decode: q1 (B, 1, Hq, D) against caches (B, S_max, Hkv, D);
@@ -65,4 +86,4 @@ def mha_decode(q1, k_cache, v_cache, pos, *, window: int | None = None,
     return sdpa(q1, k_cache, v_cache, valid[None, :])        # (Sq=1, Sk)
 
 
-__all__ = ["attention_mask", "sdpa", "mha_decode", "NEG_INF"]
+__all__ = ["attention_mask", "sdpa", "mha_prefill", "mha_decode", "NEG_INF"]

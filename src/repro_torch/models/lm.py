@@ -151,7 +151,7 @@ def _project_qkv(x, bp, cfg: ModelConfig, g=None):
     split = _attn_split(cfg, g)
     kv_cut = split and cfg.n_kv_heads % g.mp == 0
 
-    def proj(w_name, b_name, heads, cut):
+    def proj(w_name: str, b_name: str, heads: int, cut: bool):
         w = bp[w_name]
         b = bp[b_name] if cfg.qkv_bias else None
         if cut:
@@ -411,6 +411,9 @@ def _split_cache_attention(q, k, v, cache_k, cache_v, pos, window: int, cfg: Mod
     over ``model``.  Returns o (B, 1, heads, hd) on the rank's query heads."""
     if torch.is_tensor(pos) and pos.dim() > 0:
         raise ValueError("a cache cut on its sequence takes one position for every row")
+    # the rank's span is picked on the host; a device-side position is
+    # ROADMAP item 2
+    # replint-torch: disable=TRC101 -- host position, ROADMAP item 2
     p = int(pos)
     B, s_loc, h_cache = cache_k.shape[:3]
     start = split.span(s_loc)
@@ -601,6 +604,7 @@ def _run_blocks(params, x, cfg: ModelConfig, *, aux: bool = False, use_kernel: b
     return rms_norm(x, params["ln_f"], cfg.norm_eps), kvs, total
 
 
+# replint-torch: traced -- the prefill and train steps' forward
 def forward(params, batch, cfg: ModelConfig, *, use_kernel: bool = True):
     """Full-sequence forward -> (logits (B, S, V) f32, aux): the MoE layers'
     summed load-balance loss (0.0 without MoE).  Each block runs under
@@ -612,6 +616,7 @@ def forward(params, batch, cfg: ModelConfig, *, use_kernel: bool = True):
     return _lm_head(params, x, cfg), aux
 
 
+# replint-torch: traced -- the train step
 def loss_fn(params, batch, cfg: ModelConfig):
     """``(loss, metrics)`` of the JAX ``loss_fn``: the next-token
     cross-entropy of :func:`~repro_torch.models.common.lm_loss` over
@@ -625,6 +630,7 @@ def loss_fn(params, batch, cfg: ModelConfig):
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
+# replint-torch: traced -- called from the serving engine's step
 def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
             last_idx=None, cache_split=None):
     """Run the prompt -> (last-position logits (B, 1, V) f32, cache dict of
@@ -651,6 +657,8 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
     if last_idx is None:
         x_last = x[:, -1:]
     elif not torch.is_tensor(last_idx) or last_idx.dim() == 0:
+        # model-level callers only: the engine passes a (B,) tensor (below)
+        # replint-torch: disable=TRC101 -- scalar last_idx, not the engine
         i = int(last_idx)
         x_last = x[:, i:i + 1]
     else:
@@ -690,6 +698,7 @@ def cut_cache(t, split, *, head_dim: bool = True):
     return t.contiguous()
 
 
+# replint-torch: traced -- called from the serving engine's decode loop
 def decode_step(params, cache, token, pos, cfg: ModelConfig, *, block_table=None,
                 cache_split=None):
     """One token per row: token (B, 1), or (B, 1, d) embeddings for the
@@ -711,6 +720,8 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, *, block_table=None
     if torch.is_tensor(pos) and pos.dim() == 1:
         cos, sin = rope_tables(pos.long()[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     else:
+        # model-level callers only: the engine's loops pass a (B,) vector (above)
+        # replint-torch: disable=TRC101 -- scalar pos, not the engine
         cos, sin = rope_tables(torch.tensor([int(pos)], device=x.device),
                                cfg.resolved_head_dim, cfg.rope_theta)
     int8_kv = cfg.kv_cache_dtype == "int8"
@@ -740,6 +751,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> dict:
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
+# replint-torch: traced -- called from the serving engine's mixed step
 def verify_step(params, cache, tokens, pos, cfg: ModelConfig, *, block_table):
     """Score a T-token span per row in one forward: tokens (B, T) at logical
     positions ``pos[b] + t`` over a paged cache (leaves (L, P, ps, ...)).

@@ -109,7 +109,10 @@ def _mamba(x, bp, cfg: ModelConfig, **kw):
         return mamba2_block(x, bp, cfg.ssm, g=g, **kw)
     if g is not None:
         heads, d_in = tp.ssm_heads(cfg), cfg.ssm.expand * cfg.d_model
-        full = lambda k: heads if k in ("w_dt", "A_log", "D", "dt_bias") else d_in
+
+        def full(k: str) -> int:
+            return heads if k in ("w_dt", "A_log", "D", "dt_bias") else d_in
+
         bp = {k: v if model_dim(k) is None else tp.whole(v, model_dim(k), full(k), g)
               for k, v in bp.items()}
     return mamba2_block(x, bp, cfg.ssm, **kw)
@@ -127,6 +130,7 @@ def _whole_window(cv, cfg: ModelConfig):
                       cv[..., -bc:]], dim=-1)
 
 
+# replint-torch: traced -- the prefill and train steps' forward
 def forward(params, batch, cfg: ModelConfig, *, use_kernel: bool = True,
             collect_cache: bool = False):
     """Full-sequence forward -> (logits (B, S, V) f32, 0.0), or with
@@ -207,6 +211,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> dict:
     return cache
 
 
+# replint-torch: traced -- called from the serving engine's step
 def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
             cache_split=None):
     """Run the prompt -> (last-position logits (B, 1, V) f32, cache); the
@@ -227,6 +232,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None, *,
     return logits[:, -1:], cache
 
 
+# replint-torch: traced -- called from the serving engine's decode loop
 def decode_step(params, cache, token, pos, cfg: ModelConfig, *, cache_split=None):
     """One token per row: token (B, 1).  Returns ``(logits (B, 1, V) f32,
     cache)``; the cache is updated in place and the same dictionary is
@@ -246,6 +252,8 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, *, cache_split=None
         if torch.is_tensor(pos) and pos.dim() > 0:
             raise ValueError("the hybrid's decode_step takes one position for all rows "
                              "(as repro.models.mamba_lm.decode_step does), not a vector")
+        # one host position, as the JAX decode_step; the engine refuses the hybrid
+        # replint-torch: disable=TRC101 -- hybrid: not an engine path
         pos = int(pos)
         cos, sin = rope_tables(torch.tensor([pos], device=x.device),
                                cfg.resolved_head_dim, cfg.rope_theta)

@@ -72,6 +72,7 @@ def _mlp(x, bp, cfg: ModelConfig):
     return x + gated_mlp(h, bp["mlp"]["w_gate"], bp["mlp"]["w_up"], bp["mlp"]["w_down"])
 
 
+# replint-torch: traced -- the encoder of prefill and the train step
 def encode(params, enc_embeds, cfg: ModelConfig):
     """enc_embeds: (B, T_enc, d) precomputed frame embeddings (frontend
     stub) -> the encoder's output (B, T_enc, d) after ``ln_enc``."""
@@ -130,6 +131,7 @@ def _decode_prompt(params, batch, cfg: ModelConfig, *, remat: bool):
     return rms_norm(x, params["ln_f"], cfg.norm_eps), kvs
 
 
+# replint-torch: traced -- the train step's forward
 def forward(params, batch, cfg: ModelConfig):
     """Teacher-forced training forward: batch = {enc_embeds, tokens} ->
     (logits (B, S, V) f32, 0.0).  Encoder and decoder blocks run under
@@ -157,6 +159,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> dict:
     }
 
 
+# replint-torch: traced -- called from the serving step
 def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None):
     """Encode the audio and run the decoder prompt -> (last-position logits
     (B, 1, V) f32, cache): self-attention ``k``/``v`` (L, B, max_len, Hkv,
@@ -175,6 +178,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int | None = None):
                     "xk": xks.to(cfg.dtype), "xv": xvs.to(cfg.dtype)}
 
 
+# replint-torch: traced -- called from the serving decode loop
 def decode_step(params, cache, token, pos, cfg: ModelConfig):
     """One token per row: token (B, 1) at one position ``pos`` for every row
     (an int or a 0-d tensor, as the JAX ``decode_step`` takes it).  Its
@@ -184,6 +188,8 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig):
     if torch.is_tensor(pos) and pos.dim() > 0:
         raise ValueError("whisper's decode_step takes one position for all rows "
                          "(as repro.models.whisper.decode_step does), not a vector")
+    # one host position, as the JAX decode_step; no engine path serves whisper
+    # replint-torch: disable=TRC101 -- whisper: not an engine path
     pos = int(pos)
     x = params["embed"][token.long()]
     cos, sin = rope_tables(torch.tensor([pos], device=x.device),

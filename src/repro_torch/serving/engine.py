@@ -180,6 +180,7 @@ class ServingEngine:
 
     # -- the bucketed path: prefill and the K-step decode loop ------------------------
 
+    # replint-torch: traced -- the engine's prefill step
     def _paged_prefill_fn(self, pages, toks, last_idx, page_ids):
         """Batched bucketed prefill: toks (nb, pb) zero-padded rows sharing
         one bucket pb (nb is the fixed ``prefill_batch`` width).  Scatters
@@ -193,6 +194,7 @@ class ServingEngine:
         write_prefill_pages(pages, cache, page_ids)
         return tok, lp, pages
 
+    # replint-torch: traced -- the engine's decode loop
     def _decode_loop(self, kv, toks, pos, rem, live, n_steps: int, step_fn):
         """Up to ``n_steps`` greedy decode steps on the device.
 
@@ -212,7 +214,8 @@ class ServingEngine:
         n_emit = torch.zeros((na,), dtype=torch.long, device=dev)
         i = 0
         # one host sync per iteration: the early exit keeps step_count equal
-        # to the reference's
+        # to the reference's; a device-side exit is ROADMAP item 2
+        # replint-torch: disable=TRC101 -- loop exit, ROADMAP item 2
         while i < n_steps and bool(live.any()):
             logits, kv = step_fn(kv, toks, pos)
             tok, lp = greedy_epilogue(logits[:, 0])
@@ -231,6 +234,7 @@ class ServingEngine:
             i += 1
         return kv, out_toks, lp_sum, n_emit, pos, rem, i
 
+    # replint-torch: traced -- the engine's decode step
     def _paged_decode_fn(self, pages, toks, pos, rem, live, tbl, n_steps: int):
         """K-step decode loop for a compacted active-slot batch (padding
         rows carry the trash-page table and write/attend harmlessly)."""
@@ -241,6 +245,7 @@ class ServingEngine:
 
     # -- the dense-cache fallback --------------------------------------------------
 
+    # replint-torch: traced -- the engine's dense prefill step
     def _dense_prefill_fn(self, batch):
         """One request's prefill -> (greedy first token, its logprob, the
         request's cache with batch dim 1)."""
@@ -248,6 +253,7 @@ class ServingEngine:
         tok, lp = greedy_epilogue(logits[:, -1])
         return tok[0], lp[0], cache1
 
+    # replint-torch: traced -- the engine's dense decode step
     def _dense_decode_fn(self, cache, toks, pos, rem, live, n_steps: int):
         """K-step decode loop over the full dense cache -- idle slots compute
         garbage that the live mask discards."""
@@ -257,6 +263,7 @@ class ServingEngine:
 
     # -- the mixed step -------------------------------------------------------------
 
+    # replint-torch: traced -- the engine's mixed step
     def _mixed_step_fn(self, pages, hist, ell, pos, rem, live, tbl, n_steps: int):
         """Up to ``n_steps`` mixed chunked-prefill / speculative-decode
         iterations on the device: one ``verify_step`` per iteration serves
@@ -293,7 +300,8 @@ class ServingEngine:
 
         i = 0
         # one host sync per iteration: the early exit keeps step_count equal
-        # to the reference's
+        # to the reference's; a device-side exit is ROADMAP item 2
+        # replint-torch: disable=TRC101 -- loop exit, ROADMAP item 2
         while i < n_steps and bool(live.any()):
             idx = pos[:, None] + jr                           # (na, T)
             known = idx < ell[:, None]

@@ -79,6 +79,7 @@ def _scatter(cache: torch.Tensor, src: torch.Tensor, idx: torch.Tensor,
     return cache
 
 
+# replint-torch: traced -- called from the model's decode step
 def paged_update(cache: torch.Tensor, new: torch.Tensor,
                  block_table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Scatter one new token per batch row into the page pool, in place.
@@ -95,6 +96,7 @@ def paged_update(cache: torch.Tensor, new: torch.Tensor,
     return _scatter(cache, new[:, 0], idx, _last_writer(idx, P * ps))
 
 
+# replint-torch: traced -- called from the model's verify step
 def paged_update_span(cache: torch.Tensor, new: torch.Tensor,
                       block_table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Scatter a span of ``T`` new tokens per batch row into the page pool,
@@ -117,6 +119,7 @@ def paged_update_span(cache: torch.Tensor, new: torch.Tensor,
                     _last_writer(idx, P * ps))
 
 
+# replint-torch: traced -- called from the model's decode step
 def paged_gather(cache: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     """Reconstruct the dense per-slot view from the page pool.
 
@@ -132,6 +135,7 @@ def paged_gather(cache: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
     return flat[idx]
 
 
+# replint-torch: traced -- called from the serving engine's prefill step
 def write_prefill_pages(pages: dict, cache: dict, page_ids: torch.Tensor) -> dict:
     """Scatter a batched prefill cache into the pool, page-chunked, in place.
 
@@ -156,6 +160,7 @@ def write_prefill_pages(pages: dict, cache: dict, page_ids: torch.Tensor) -> dic
     return pages
 
 
+# replint-torch: traced -- called from the model's decode step
 def _vector_mask(seq_len: int, pos: torch.Tensor, window: int) -> torch.Tensor:
     """(B, 1, S) validity mask for one query per row at logical ``pos[b]``:
     keys k <= pos[b] (minus the sliding window, when ``window`` > 0).  The
@@ -167,6 +172,7 @@ def _vector_mask(seq_len: int, pos: torch.Tensor, window: int) -> torch.Tensor:
     return valid[:, None, :]
 
 
+# replint-torch: traced -- called from the model's verify step
 def _span_mask(seq_len: int, pos: torch.Tensor, q_len: int,
                window: int) -> torch.Tensor:
     """(B, T, S) causal mask for a T-token span starting at per-row ``pos``:

@@ -28,6 +28,7 @@ class Proposer(Protocol):
     def __call__(self, hist: torch.Tensor, ell: torch.Tensor) -> torch.Tensor: ...
 
 
+# replint-torch: traced -- called from the serving engine's mixed step
 def prefix_len(match: torch.Tensor) -> torch.Tensor:
     """Length of the leading all-True run along the last axis: the number of
     block positions committed by the acceptance rule."""
@@ -52,6 +53,7 @@ class NGramProposer:
     draft_len: int
     ngram: int = 2
 
+    # replint-torch: traced -- called from the serving engine's mixed step
     def __call__(self, hist: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:
         B, H = hist.shape
         i = torch.arange(H, device=hist.device)[None, :]          # candidate end
@@ -79,6 +81,7 @@ class RepeatProposer:
 
     draft_len: int
 
+    # replint-torch: traced -- called from the serving engine's mixed step
     def __call__(self, hist: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:
         last = _take(hist, (ell.long() - 1)[:, None])             # (B, 1)
         return last.expand(hist.shape[0], self.draft_len)

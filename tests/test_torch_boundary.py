@@ -77,3 +77,28 @@ def test_core_is_copied_but_for_the_port_written_remesh():
     copied = {str(p.relative_to(PORT)) for p in _copied_files()}
     assert rel(PORT) - copied == set(PORT_WRITTEN)
     assert not copied & set(PORT_WRITTEN)
+
+
+def test_lint_subpackage_is_covered():
+    """The port's lint package (repro_torch.lint) is among the files the
+    import check walks."""
+    lint = sorted((PORT / "lint").rglob("*.py"))
+    assert len(lint) >= 10
+    assert set(lint) <= set(_port_files())
+
+
+#: JAX modules whose port counterpart has another name: the Pallas rules'
+#: counterpart is the CUDA launch rules
+RENAMED = {"lint/rules/pallas.py": "lint/rules/kernels.py"}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every module of src/repro has one under src/repro_torch, but the
+    Pallas kernel.py / ref.py files, whose counterparts are the CUDA sources
+    and the plain versions."""
+    for p in sorted(JAX_PKG.rglob("*.py")):
+        if p.name in ("kernel.py", "ref.py"):
+            continue
+        rel = str(p.relative_to(JAX_PKG))
+        assert (PORT / RENAMED.get(rel, rel)).exists(), f"no counterpart of src/repro/{rel}"
+

@@ -17,14 +17,16 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention_paged, decode_attention_plain, decode_attention_split_plain,
     dense_live_pages, paged_decode_attention_plain, paged_mixed_attention_plain,
 )
-from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_dyn, flash_attention_plain,
+)
 from repro_torch.kernels.sampling.ops import (
     _epilogue_kernel, fused_lmhead_greedy, greedy_cluster_plan, greedy_epilogue,
     greedy_epilogue_plain, greedy_epilogue_split_plain, greedy_max_cluster, lmhead_greedy_plain,
     lmhead_greedy_walk_plain,
 )
 from repro_torch.kernels.ssd.ops import ssd_intra, ssd_intra_grouped_plain, ssd_intra_plain
-from repro_torch.models.attention import mha_decode
+from repro_torch.models.attention import mha_decode, mha_prefill
 
 from _torch_helpers import (
     DENSE_DECODE_SHAPES, dense_decode_inputs, flash_inputs, lmhead_inputs, logits_inputs,
@@ -135,6 +137,45 @@ def test_flash_attention_rejects_unsupported_head_dim():
                for a in flash_inputs(1, S=64, D=48))
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_dyn(q, k, v, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [-1, 5, 100])
+@pytest.mark.parametrize("group,S,D", [(1, 16, 16), (3, 100, 64), (2, 200, 128),
+                                       (1, 1500, 64), (2, 70, 256)])
+def test_flash_attention_noncausal_kernel_matches_plain(dtype, window, group, S, D):
+    """The kernel's non-causal mode (``attention.mha_prefill(causal=False)``,
+    whisper's encoder): every later key visible, the window one-sided, a
+    tile smaller than 64 rows, ragged last tiles (S 1500, whisper-small's
+    encoder length), the head dims at both ends."""
+    dev = require_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dev, dt) for a in flash_inputs(group, S=S, D=D))
+    before = flash_attention_dyn.launches
+    out = flash_attention(q, k, v, causal=False, window=window if window > 0 else None)
+    torch.cuda.synchronize()
+    assert flash_attention_dyn.launches == before + 1
+    ref = flash_attention_plain(q, k, v, window, causal=False)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_mha_prefill_kernel_route_launches_and_matches_plain(causal, window):
+    """``attention.mha_prefill(use_kernel=True)`` launches the flash kernel
+    once and agrees with the plain route (float32)."""
+    dev = require_cuda()
+    q, k, v = (torch.from_numpy(a).to(dev) for a in flash_inputs(3, S=300, D=64))
+    before = flash_attention_dyn.launches
+    out = mha_prefill(q, k, v, causal=causal, window=window, use_kernel=True)
+    torch.cuda.synchronize()
+    assert flash_attention_dyn.launches == before + 1
+    ref = mha_prefill(q, k, v, causal=causal, window=window)
+    assert flash_attention_dyn.launches == before + 1
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
 # (n, starts) of 16-token pages: a 4-entry table (64 keys: one split a
@@ -480,6 +521,7 @@ def test_greedy_epilogue_both_cta_sizes_match_plain(V, B, dtype, layout, threads
                                       greedy_max_cluster(dev.index or 0), dtype.itemsize)
     tok = torch.empty((B,), dtype=torch.int32, device=dev)
     lp = torch.empty((B,), device=dev)
+    # replint-torch: disable=KRN201 -- harness: its own inputs, no autograd
     err = _epilogue_kernel()[0](int(dtype == torch.bfloat16), x.data_ptr(), x.stride(0), B, V,
                                 C, width, threads, tok.data_ptr(), lp.data_ptr(),
                                 torch.cuda.current_stream().cuda_stream)

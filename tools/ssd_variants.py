@@ -88,6 +88,7 @@ def main() -> int:
         stream = torch.cuda.current_stream().cuda_stream
 
         def call(fn):
+            # replint-torch: disable=KRN201 -- harness: its own inputs, no autograd
             err = fn(xb.data_ptr(), acs.data_ptr(), Bg.data_ptr(), Cg.data_ptr(), y.data_ptr(),
                      scores.data_ptr(), ctypes.addressof(strides), bc, q, h, p, n, 1, stream)
             if err:
