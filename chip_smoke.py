@@ -120,7 +120,9 @@ Phases, each of which fails the run if it fails:
    layers, B 4 x S 512: 3 ``sharded_step``s equal 3 plain steps from the
    same state bit for bit (losses, parameters, moments); a train-state
    checkpoint restored onto the mesh by ``restore_resharded`` bit for bit,
-   with one copy's peak device memory; ``compress_allreduce_pod`` over a
+   with one copy's peak device memory; the parameters restored by
+   ``CheckpointManager.restore_latest(template, shardings)`` bit for bit
+   against ``restore_resharded`` of the same file; ``compress_allreduce_pod`` over a
    one-rank pod group exact; ``measure_provision_delay`` at dp 1, tp 1;
    then, under torch's fake backend, the parameters restored onto a (2, 4)
    mesh as rank 6, holding only that rank's blocks on the card;
@@ -161,12 +163,42 @@ Phases, each of which fails the run if it fails:
    calls); 14c ``examples/torch/quickstart.py`` on the card in a child
    process (240 s at most); 14d ``python -m repro_torch.lint --selftest``
    and a run over its default paths on the host (started after phase 2),
-   both exit 0.
+   both exit 0;
+15. the configurations the card had not served: 15a gemma3-4b ``CONFIG``
+   at bf16, full width and depth (5:1 local / global, window 1024, heads
+   of 256, untied 262144-word head), ``ServeConfig(max_batch=8,
+   max_len=2048)``, 16 requests with prompts of 64 .. 1536 tokens (at least
+   half the rows past position 1024) on the chunked path twice (the same
+   tokens) and on the bucketed path: completion, pages conserved, paged
+   mixed attention 34 launches and the lm-head one a ``verify_step``;
+   flash 34 a prefill group, paged decode 34 a decode step, the greedy
+   epilogue one a step; each attention kernel's launches also counted by
+   window, 29 at 1024 and 5 at -1 a step; no plain version; then at
+   float32, layers 0-5,
+   two rows prefilled to 1400 tokens and 16 ``verify_step``s on the card
+   against the CPU (tokens identical, logprobs within 1e-4), with a
+   planted fault (the local layers' window dropped on the card) that must
+   fail that gate; then ``python -m repro_torch.launch.serve --arch
+   gemma3-4b --max-len 2048 --policy appdata`` as a child (3 of its 5 rows
+   pass position 1024); 15b qwen2.5-3b
+   ``CONFIG`` serving on the chunked path (36 launches a ``verify_step``);
+   15c smollm-135m with an int8 KV cache on both paths (every paged
+   kernel call on int8 pages with scales) and its float32 references, card
+   against CPU; 15d ``paged=False`` on smollm-135m (flash one a layer a
+   prefill, the greedy epilogue one a prefill and a step) and its float32
+   reference; 15e ``python -m repro_torch.launch.train --microbatches 2``
+   as a child (the loss falls), ``microbatches=2`` and ``remat="dots"``
+   against 1 and ``"block"`` at float32 (loss and gradients within 1e-5),
+   and both remat policies timed at full width.  Phase 3 checks and times
+   the kernels at 15a's shapes first (``kernel[gemma3-4b local]`` and
+   ``[gemma3-4b global]`` records, and ``lmhead_greedy[gemma3-4b]`` with a
+   tie across its persistent blocks).  ``python3 tools/config_phase.py``
+   runs phase 15 alone.
 
 The second-to-last line of stdout is the ``kernels`` JSON record (the greedy
 epilogue's launches are phase 5b's plus phase 5c's; a record named
 ``kernel[config]`` is that kernel at the config's shape, its launches from
-phase 9b's or 9c's run of that config), the last
+phase 9b's or 9c's run of that config, or 15a's at that window), the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -376,9 +408,8 @@ def check_attention(dev, flush) -> dict:
     16 queries, 9 query / 3 kv heads of 64, 16-token pages, 64 pages a row,
     mixed starts up to 1000; f32, bf16 and int8 pages, window -1 and 64;
     and, for correctness only, qwen2.5-3b's heads (16 / 2 of 128), also at
-    32-query chunks (256 query rows a kv head: the bf16 kernel's row tiles),
-    and gemma3-4b's local layers (8 / 4 of 256, window 1024, a 128-page
-    table so the window bites)."""
+    32-query chunks (256 query rows a kv head: the bf16 kernel's row tiles);
+    gemma3-4b's heads are :func:`check_gemma_kernels`'."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
@@ -393,10 +424,6 @@ def check_attention(dev, flush) -> dict:
     qwen = paged_inputs(dev, 8, 16, 16, 2, 128, 16, 64,
                         [0, 17, 130, 255, 511, 640, 893, 1000], SEED + 12)
     cases.append(("qwen2.5-3b", qwen[0], qwen[1], qwen[2], (-1,),
-                  ("float32", "bfloat16", "int8")))
-    gemma = paged_inputs(dev, 8, 16, 8, 4, 256, 16, 128,
-                         [0, 17, 130, 255, 1100, 1500, 1893, 2000], SEED + 13)
-    cases.append(("gemma3-4b local", gemma[0], gemma[1], gemma[2], (1024,),
                   ("float32", "bfloat16", "int8")))
     # 32-token chunks on qwen2.5-3b: 256 query rows a kv head, two row tiles
     chunk32 = paged_inputs(dev, 8, 32, 16, 2, 128, 16, 64,
@@ -422,7 +449,7 @@ def check_attention(dev, flush) -> dict:
                                          f"window={window} disagrees with its plain "
                                          f"version: {err}")
                 errs[(shape, name, window)] = err
-    del qwen, gemma, chunk32, cases
+    del qwen, chunk32, cases
 
     # timings on the main path's variant: bf16 pages, no window
     qq, kk, vv, _ = variants["bfloat16"]
@@ -688,9 +715,9 @@ def check_paged_decode(dev, flush) -> dict:
     16-token pages, 64 pages a row; bf16 and int8 pages, window -1, 64 (on
     a page boundary) and 40 (inside a page); the batches 1, 2 and 4 the
     bucketed engine compacts to; rows of 1, 64 and 128 keys (a live range
-    ending on a split boundary); and qwen2.5-3b's (16 / 2 of 128) and
-    gemma3-4b's local (8 / 4 of 256, window 1024) head shapes.  Timed
-    beside sdpa over the gathered pages and the mixed kernel at T = 1."""
+    ending on a split boundary); and qwen2.5-3b's head shape (16 / 2 of
+    128; gemma3-4b's are :func:`check_gemma_kernels`').  Timed beside sdpa
+    over the gathered pages and the mixed kernel at T = 1."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
@@ -709,9 +736,6 @@ def check_paged_decode(dev, flush) -> dict:
         dev, 4, Hq, Hkv, D, ps, n, [1, 64, 128, 129], SEED + 25)[:3], (-1, 64, 7)))
     cases.append(("qwen2.5-3b", *decode_inputs(dev, 8, 16, 2, 128, ps, n, DECODE_LENGTHS,
                                                SEED + 26)[:3], (-1,)))
-    cases.append(("gemma3-4b local", *decode_inputs(
-        dev, 8, 8, 4, 256, ps, 128, [64, 300, 1024, 1025, 1500, 1893, 2000, 2048],
-        SEED + 27)[:3], (1024,)))
     errs = {}
     for shape, var, tb, lens, windows in cases:
         for name in ("bfloat16", "int8"):
@@ -784,8 +808,9 @@ GREEDY_VOCABS = (("smollm-135m", 49152, 576), ("mamba2-1.3b", 50280, 2048),
                  ("zamba2-2.7b", 32000, 2560), ("qwen2.5-3b", 151936, 2048),
                  ("gemma3-4b", 262144, 2560), ("olmoe-1b-7b", 50304, 2048))
 # the configs whose (8, V) f32 row is reported as a record: smollm-135m's
-# phase 5b, olmoe-1b-7b's bucketed drain of phase 9b
-GREEDY_RECORDS = {"smollm-135m": "greedy_epilogue", "olmoe-1b-7b": "greedy_epilogue[olmoe-1b-7b]"}
+# phase 5b, olmoe-1b-7b's bucketed drain of phase 9b, gemma3-4b's of 15a
+GREEDY_RECORDS = {"smollm-135m": "greedy_epilogue", "olmoe-1b-7b": "greedy_epilogue[olmoe-1b-7b]",
+                  "gemma3-4b": "greedy_epilogue[gemma3-4b]"}
 
 
 def timed_after_ms(prep, fn, *, reps: int = 20) -> float:
@@ -1148,31 +1173,37 @@ def record(name, source, replaces, err, ms, plain_ms, b_ms, b_by, library_ms) ->
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
-def paged_timing(fn, plain, args, q, kk, tbl, rows_at, n_live, ps, flush, **kw):
+def paged_timing(fn, plain, args, q, kk, tbl, rows_at, ps, flush, **kw):
     """(kernel ms, plain ms, sdpa ms, bound ms, bound_by) of one paged
     attention call on bf16 pages: ``rows_at`` (B,) are each row's first
     query positions (``starts``, or ``lengths - 1`` at T = 1).  The bound
-    reads each live page once, q once and writes out once; its flops are
-    QK^T and PV over the keys each query attends."""
+    reads once each page a query of the row can see (inside the window),
+    q once and writes out once; its flops are QK^T and PV over the keys
+    each query attends."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import live_pages
     from repro_torch.serving.kvcache import _span_mask, paged_gather
 
     B, T, Hq, D = q.shape
     Hkv = kk.shape[2]
+    window = kw.get("window", -1)
     ms = timed_ms(lambda: fn(*args, **kw), flush=flush)
     plain_ms = timed_ms(lambda: plain(*args, **kw), flush=flush)
     kd = paged_gather(kk, tbl).transpose(1, 2)                 # (B, Hkv, S, D)
     vd = paged_gather(args[2], tbl).transpose(1, 2)
-    mask = _span_mask(kd.shape[2], rows_at, T, kw.get("window", -1))[:, None]
+    mask = _span_mask(kd.shape[2], rows_at, T, window)[:, None]
     qt = q.transpose(1, 2)
 
     def lib():
         return F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, enable_gqa=True)
 
     library_ms = timed_ms(lib, flush=flush)
-    n_bytes = (2 * q.numel() * q.element_size() + sum(n_live) * 2 * ps * Hkv * D * 2
+    pages = sum(hi - lo for lo, hi in (live_pages(int(s), T, ps, tbl.shape[1], window)
+                                       for s in rows_at.tolist()))
+    n_bytes = (2 * q.numel() * q.element_size() + pages * 2 * ps * Hkv * D * 2
                + tbl.numel() * 4 + B * 4)
-    keys = sum(int(s) + t + 1 for s in rows_at.tolist() for t in range(T))
+    keys = sum(min(int(s) + t + 1, window if window > 0 else int(s) + t + 1)
+               for s in rows_at.tolist() for t in range(T))
     b_ms, b_by = bound_ms(n_bytes, 4.0 * keys * Hq * D)
     return ms, plain_ms, library_ms, b_ms, b_by
 
@@ -1197,7 +1228,7 @@ def check_family_kernels(dev, flush) -> list[dict]:
     records = []
     for i, (arch, Hq, Hkv, D, window) in enumerate(FAMILY_MIXED):
         B, T, ps, n = 8, 16, 16, 64
-        var, tbl, starts, n_live = paged_inputs(
+        var, tbl, starts, _ = paged_inputs(
             dev, B, T, Hq, Hkv, D, ps, n, [0, 17, 130, 255, 511, 640, 893, 1000], SEED + 40 + i)
         errs = {}
         for name in ("float32", "bfloat16", "int8"):
@@ -1219,7 +1250,7 @@ def check_family_kernels(dev, flush) -> list[dict]:
         qq, kk, vv, _ = var["bfloat16"]
         ms, plain_ms, lib_ms, b_ms, b_by = paged_timing(
             decode_attention_mixed, paged_mixed_attention_plain, (qq, kk, vv, tbl, starts),
-            qq, kk, tbl, starts, n_live, ps, flush, window=window)
+            qq, kk, tbl, starts, ps, flush, window=window)
         pps = choose_pages_per_split(B, Hkv, n, ps, _sm_count(0))
         log(f"[kernels] paged_mixed_attention bf16 {arch}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
@@ -1251,7 +1282,7 @@ def check_family_kernels(dev, flush) -> list[dict]:
     Hq, Hkv, D = OLMOE_HEADS
     for ps in SWEEP_PAGE_SIZES:
         B, n = 8, 1024 // ps
-        var, tbl, lengths, n_live = decode_inputs(dev, B, Hq, Hkv, D, ps, n, DECODE_LENGTHS,
+        var, tbl, lengths, _ = decode_inputs(dev, B, Hq, Hkv, D, ps, n, DECODE_LENGTHS,
                                                   SEED + 60 + ps)
         errs = {}
         for name in ("bfloat16", "int8"):
@@ -1270,7 +1301,7 @@ def check_family_kernels(dev, flush) -> list[dict]:
         qq, kk, vv, _ = var["bfloat16"]
         ms, plain_ms, lib_ms, b_ms, b_by = paged_timing(
             decode_attention_paged, paged_decode_attention_plain, (qq, kk, vv, tbl, lengths),
-            qq, kk, tbl, lengths - 1, n_live, ps, flush, window=-1)
+            qq, kk, tbl, lengths - 1, ps, flush, window=-1)
         pps = choose_pages_per_split(B, Hkv, n, ps, _sm_count(0))
         log(f"[kernels] paged_decode_attention bf16 olmoe-1b-7b page size {ps}: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
@@ -1285,6 +1316,166 @@ def check_family_kernels(dev, flush) -> list[dict]:
     return records
 
 
+# gemma3-4b's attention heads (Hq, Hkv, D) and local window; phase 15a's
+# engine runs 29 local and 5 global layers a step (``lm.layer_windows``)
+GEMMA_HEADS = (8, 4, 256)
+GEMMA_WINDOW = 1024
+# phase 15a's rows: starts (paged mixed) and lengths (paged decode) over
+# 128-page rows of 16 tokens, most past the window
+GEMMA_STARTS = [0, 17, 130, 1010, 1100, 1500, 1893, 2032]
+GEMMA_LENGTHS = [64, 300, 1024, 1025, 1500, 1893, 2000, 2048]
+
+
+def check_gemma_kernels(dev, flush) -> list[dict]:
+    """Phase 3 at the shapes phase 15a gives the kernels on gemma3-4b
+    (8 / 4 heads of 256, window 1024 on the local layers, -1 on the
+    global ones, ``max_len`` 2048): the bf16 lm-head on the untied
+    2560 x 262144 head at N 128 (the chunked step's 8 x 16 rows), with an
+    exact tie across two persistent blocks; flash attention at the
+    bucketed prefill's largest group, B 8 x S 2048; paged mixed attention
+    at 8 rows of 16 queries and paged decode attention at 8 rows of one,
+    over 128-page rows (f32, bf16 and int8 pages).  Each is checked
+    against its plain version at both windows, then timed (bf16) beside
+    the plain version, its library call and its bound; the records are
+    ``kernel[gemma3-4b local]`` and ``[gemma3-4b global]`` (the lm-head's
+    ``lmhead_greedy[gemma3-4b]``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_mixed, decode_attention_paged, paged_decode_attention_plain,
+        paged_mixed_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_dyn, flash_attention_plain
+    from repro_torch.kernels.sampling.ops import (
+        LMHEAD_TILE_V, _kernel, _sm_count, fused_lmhead_greedy, lmhead_greedy_plain)
+
+    Hq, Hkv, D = GEMMA_HEADS
+    windows = {"local": GEMMA_WINDOW, "global": -1}
+    records = []
+    paged_src = "src/repro/kernels/decode_attention/kernel.py"
+
+    # the lm-head: seeded, then an exact tie in two different blocks' tiles
+    N, d, V = 128, 2560, 262144
+    h, w = lmhead_case(dev, N, d, V, tied=False, seed=SEED + 80)
+    err = check_lmhead_case(f"gemma3-4b untied {N} x {d} x {V}", h, w)
+    g = torch.Generator(device=dev).manual_seed(SEED + 81)
+    hi = torch.randint(-2, 3, (N, d), generator=g, device=dev, dtype=torch.int8).bfloat16()
+    wi = torch.randint(-1, 2, (d, V), generator=g, device=dev, dtype=torch.int8).bfloat16()
+    wi[:, 300] = wi[:, 200000] = torch.sign(hi[0].float()).bfloat16()
+    blocks = _kernel()[1](1, N, V, _sm_count(0))
+    tok_t, lp_t = fused_lmhead_greedy(hi, wi)
+    torch.cuda.synchronize()
+    tok_p, lp_p = lmhead_greedy_plain(hi, wi)
+    b_a, b_b = (300 // LMHEAD_TILE_V) % blocks, (200000 // LMHEAD_TILE_V) % blocks
+    tie_ok = (torch.equal(tok_t, tok_p) and int(tok_t[0]) == 300 and b_a != b_b
+              and (lp_t - lp_p).abs().max().item() <= 1e-3)
+    log(f"[kernels] lmhead_greedy gemma3-4b ties: row 0 -> {int(tok_t[0])} (first maximal index "
+        f"300 in block {b_a} of {blocks}, 200000 in block {b_b}), all rows equal to plain: "
+        f"{bool(torch.equal(tok_t, tok_p))}")
+    if not tie_ok:
+        raise AssertionError("lmhead_greedy at gemma3-4b's head breaks ties differently from "
+                             "argmax")
+    del hi, wi
+    ms = timed_ms(lambda: fused_lmhead_greedy(h, w), flush=flush)
+    plain_ms = timed_ms(lambda: lmhead_greedy_plain(h, w), flush=flush)
+    lib_ms = timed_ms(lmhead_library(h, w), flush=flush)
+    b_ms, b_by = bound_ms(V * d * 2 + N * d * 2 + N * 8, 2.0 * N * d * V)
+    log(f"[kernels] lmhead_greedy bf16 gemma3-4b: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"matmul+max+logsumexp {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+        f"{(V * d * 2) / 1e6:.1f} MB of head); kernel/library {ms / lib_ms:.3f}, kernel/bound "
+        f"{ms / b_ms:.2f}; {blocks} persistent blocks")
+    records.append(record("lmhead_greedy[gemma3-4b]", "lmhead_greedy.cu",
+                          "src/repro/kernels/sampling/kernel.py:139", err, ms, plain_ms, b_ms,
+                          b_by, lib_ms))
+    del h, w
+
+    # flash attention at the bucketed prefill's bucket 2048, 8 rows
+    B, S = 8, 2048
+    g = torch.Generator(device=dev).manual_seed(SEED + 82)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev) for H in (Hq, Hkv, Hkv))
+    errs = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+        for window in windows.values():
+            out = flash_attention_dyn(qq, kk, vv, window)
+            torch.cuda.synchronize()
+            ref = flash_attention_plain(qq, kk, vv, window)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = 1e-4 if name == "float32" else 2e-2
+            log(f"[kernels] flash_attention gemma3-4b B {B} S {S} {name} window={window}: "
+                f"max |kernel - plain| = {err:.3e} (tol {tol})")
+            if not (err <= tol and torch.isfinite(out).all()):
+                raise AssertionError(f"flash_attention gemma3-4b {name} window={window} "
+                                     f"disagrees with its plain version: {err}")
+            errs[(name, window)] = err
+            del out, ref
+    qq, kk, vv = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    del q, k, v
+    qt, kt, vt = qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+    pos = torch.arange(S, device=dev)
+    for kind, window in windows.items():
+        ms = timed_ms(lambda: flash_attention_dyn(qq, kk, vv, window), flush=flush)
+        plain_ms = timed_ms(lambda: flash_attention_plain(qq, kk, vv, window), flush=flush)
+        if window > 0:
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            pairs = sum(min(i + 1, window) for i in range(S))
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+            pairs = S * (S + 1) // 2
+        lib_ms = timed_ms(lib, flush=flush)
+        n_bytes = (2 * qq.numel() + kk.numel() + vv.numel()) * qq.element_size()
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * D * Hq * B * pairs)
+        log(f"[kernels] flash_attention bf16 gemma3-4b {kind} (window {window}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}: {n_bytes / 1e6:.2f} MB, {4.0 * D * Hq * B * pairs / 1e9:.3f} GFLOP); "
+            f"kernel/library {ms / lib_ms:.3f}, kernel/bound {ms / b_ms:.1f}")
+        records.append(record(f"flash_attention[gemma3-4b {kind}]", "flash_attention.cu",
+                              "src/repro/kernels/flash_attention/kernel.py:77",
+                              errs[("bfloat16", window)], ms, plain_ms, b_ms, b_by, lib_ms))
+    del qq, kk, vv, qt, kt, vt
+
+    # paged mixed attention (16 queries a row) and paged decode (one), 128-page rows
+    ps, n = 16, 128
+    cases = (("paged_mixed_attention", decode_attention_mixed, paged_mixed_attention_plain,
+              paged_inputs(dev, 8, 16, Hq, Hkv, D, ps, n, GEMMA_STARTS, SEED + 83), 0, 234),
+             ("paged_decode_attention", decode_attention_paged, paged_decode_attention_plain,
+              decode_inputs(dev, 8, Hq, Hkv, D, ps, n, GEMMA_LENGTHS, SEED + 84), 1, 288))
+    for kname, fn, plain, (var, tbl, rows, _), at_t1, line in cases:
+        errs = {}
+        names = ("float32", "bfloat16", "int8") if not at_t1 else ("bfloat16", "int8")
+        for name in names:
+            qq, kk, vv, sc = var[name]
+            for window in windows.values():
+                out = fn(qq, kk, vv, tbl, rows, window=window, **sc)
+                torch.cuda.synchronize()
+                ref = plain(qq, kk, vv, tbl, rows, window=window, **sc)
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = 1e-4 if name == "float32" else 2e-2
+                log(f"[kernels] {kname} gemma3-4b (128-page rows) {name} window={window}: "
+                    f"max |kernel - plain| = {err:.3e} (tol {tol})")
+                if not (err <= tol and torch.isfinite(out).all()):
+                    raise AssertionError(f"{kname} gemma3-4b {name} window={window} disagrees "
+                                         f"with its plain version: {err}")
+                errs[(name, window)] = err
+        qq, kk, vv, _ = var["bfloat16"]
+        for kind, window in windows.items():
+            ms, plain_ms, lib_ms, b_ms, b_by = paged_timing(
+                fn, plain, (qq, kk, vv, tbl, rows), qq, kk, tbl, rows - at_t1, ps, flush,
+                window=window)
+            log(f"[kernels] {kname} bf16 gemma3-4b {kind} (window {window}): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+                f"kernel/library {ms / lib_ms:.3f}, kernel/bound {ms / b_ms:.1f}")
+            records.append(record(f"{kname}[gemma3-4b {kind}]", f"{kname}.cu",
+                                  f"{paged_src}:{line}", errs[("bfloat16", window)], ms,
+                                  plain_ms, b_ms, b_by, lib_ms))
+        del var
+    return records
+
+
 # ---------------------------------------------------------------------------------
 # phases 4-7: the serving paths
 # ---------------------------------------------------------------------------------
@@ -1295,9 +1486,18 @@ def to_device(tree, dev):
     return tree_map(lambda t: t.to(dev), tree)
 
 
-def small_reference(dev, *, chunked: bool = True) -> None:
+# phase 4's score tolerance, card against CPU at float32, with the native and
+# the int8 KV cache alike
+REF_SCORE_TOL = 1e-4
+
+
+def small_reference(dev, *, chunked: bool = True, kv: str = "native",
+                    paged: bool = True) -> None:
     """Smoke config at float32: the engine on the card (kernels) and on the
-    CPU (plain versions) emit identical greedy tokens."""
+    CPU (plain versions) emit identical greedy tokens in the same step
+    count, scores within :data:`REF_SCORE_TOL`; with ``kv`` "int8" over an
+    int8 KV cache (phase 15c), with ``paged=False`` through the dense-cache
+    fallback (phase 15d)."""
     import dataclasses
 
     import numpy as np
@@ -1306,29 +1506,37 @@ def small_reference(dev, *, chunked: bool = True) -> None:
     from repro_torch.models import build_model
     from repro_torch.serving import Request, ServeConfig, ServingEngine
 
-    cfg = dataclasses.replace(get_smoke_config("smollm-135m"), dtype=torch.float32)
-    outs = {}
+    cfg = dataclasses.replace(get_smoke_config("smollm-135m"), dtype=torch.float32,
+                              kv_cache_dtype=kv)
+    outs, steps = {}, {}
     for where in ("cpu", "cuda"):
         model = build_model(cfg, device=where)
         params = to_device(build_model(cfg, device="cpu").init_params(SEED), where)
         eng = ServingEngine(model, params, ServeConfig(max_batch=4, max_len=64, page_size=8,
                                                        chunk_size=8, draft_len=4,
-                                                       chunked_prefill=chunked),
+                                                       chunked_prefill=chunked, paged=paged),
                             device=where)
         rng = np.random.default_rng(SEED)
         for i in range(6):
             eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(4, 24))),
                                max_new_tokens=int(rng.integers(4, 16))))
         eng.run_until_drained()
-        eng.kv.check_invariants()
+        if paged:
+            eng.kv.check_invariants()
+        elif eng.paged:
+            raise AssertionError("paged=False built a paged engine")
         outs[where] = {r.rid: (r.output, r.score) for r in eng.completed}
+        steps[where] = eng.step_count
     same = all(outs["cpu"][r][0] == outs["cuda"][r][0] for r in outs["cpu"])
     dscore = max(abs(outs["cpu"][r][1] - outs["cuda"][r][1]) for r in outs["cpu"])
-    log(f"[reference] smoke f32 {'chunked' if chunked else 'bucketed'} engine, card vs "
-        f"CPU: tokens identical {same}, "
-        f"max |score diff| {dscore:.2e}")
-    if not (same and len(outs["cuda"]) == 6 and dscore < 1e-4):
-        raise AssertionError("the engine on the card disagrees with the CPU reference")
+    path = ("dense-cache" if not paged else "chunked" if chunked else "bucketed")
+    log(f"[reference] smoke f32 {path} engine, kv cache {kv}, card vs CPU: tokens identical "
+        f"{same}, step counts {steps['cuda']} / {steps['cpu']}, max |score diff| {dscore:.2e} "
+        f"(tol {REF_SCORE_TOL})")
+    if not (same and len(outs["cuda"]) == 6 and steps["cuda"] == steps["cpu"]
+            and dscore < REF_SCORE_TOL):
+        raise AssertionError(f"the {path} engine ({kv} kv cache) on the card disagrees with "
+                             f"the CPU reference")
 
 
 def ssm_reference(dev) -> None:
@@ -1394,15 +1602,17 @@ def main_requests(vocab):
                     max_new_tokens=int(rng.integers(32, 129))) for i in range(16)]
 
 
-def main_path(dev, model, params, counters) -> tuple[dict, dict]:
-    """Phase 5; returns (launches, {rid: tokens})."""
+def main_path(dev, model, params, counters, *, requests=main_requests, max_len: int = 1024,
+              tag: str = "[main]") -> tuple[dict, dict]:
+    """Phase 5 (or ``requests(vocab)`` at ``max_len``, printed under
+    ``tag``); returns (launches, {rid: tokens})."""
     import numpy as np
     import torch
     from repro_torch.serving import ServeConfig, ServingEngine
 
     cfg = model.cfg
-    eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024), device=dev)
-    reqs = main_requests(cfg.vocab)
+    eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=max_len), device=dev)
+    reqs = requests(cfg.vocab)
     for r in reqs:
         eng.submit(r)
     for c in counters:
@@ -1421,12 +1631,13 @@ def main_path(dev, model, params, counters) -> tuple[dict, dict]:
           and all(np.isfinite(r.score) and r.score <= 0.0 for r in reqs)
           and eng.kv.n_free == eng.kv.num_pages - 1
           and all(v > 0 for v in launches.values()))
-    log(f"[main] {cfg.name} bf16, {cfg.n_layers} layers, d={cfg.d_model}: {len(eng.completed)}"
+    log(f"{tag} {cfg.name} {str(cfg.dtype).removeprefix('torch.')}, {cfg.n_layers} layers, "
+        f"d={cfg.d_model}, kv cache {cfg.kv_cache_dtype}: {len(eng.completed)}"
         f"/{len(reqs)} requests, {sum(len(r.prompt) for r in reqs)} prompt + {emitted} "
         f"emitted tokens in {wall:.3f} s ({emitted / wall:.1f} emitted tok/s, "
         f"{eng.step_count} mixed iterations of {1e3 * wall / eng.step_count:.2f} ms, "
         f"span {eng.span}); launches {launches}")
-    log(f"[main] speculation {json.dumps(eng.speculation_stats)}; peak memory "
+    log(f"{tag} speculation {json.dumps(eng.speculation_stats)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     if not ok:
         raise AssertionError("main path failed: incomplete requests, bad outputs, a "
@@ -1434,18 +1645,27 @@ def main_path(dev, model, params, counters) -> tuple[dict, dict]:
     return launches, {r.rid: r.output for r in reqs}
 
 
-def bucketed_path(dev, model, params, counters, chunked_tokens) -> dict:
-    """Phase 5b: phase 5's requests on the bucketed-prefill path.  At bf16 a
+def token_share(reqs, tokens: dict) -> tuple[int, int]:
+    """(positions where ``reqs``' outputs equal ``tokens[rid]``, positions)."""
+    same = sum(a == b for r in reqs for a, b in zip(r.output, tokens[r.rid]))
+    return same, sum(len(r.output) for r in reqs)
+
+
+def bucketed_path(dev, model, params, counters, chunked_tokens, *, requests=main_requests,
+                  max_len: int = 1024, tag: str = "[bucketed]") -> dict:
+    """Phase 5b: phase 5's requests on the bucketed-prefill path (or
+    ``requests(vocab)`` at ``max_len``, printed under ``tag``).  At bf16 a
     near-tie argmax may differ between the two paths' summation orders, so
-    the share of requests with phase 5's tokens is printed, not gated."""
+    the share of requests (and of tokens) equal to ``chunked_tokens`` is
+    printed, not gated."""
     import numpy as np
     import torch
     from repro_torch.serving import ServeConfig, ServingEngine
 
     cfg = model.cfg
-    eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024,
+    eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=max_len,
                                                    chunked_prefill=False), device=dev)
-    reqs = main_requests(cfg.vocab)
+    reqs = requests(cfg.vocab)
     for r in reqs:
         eng.submit(r)
     for c in counters:
@@ -1465,13 +1685,17 @@ def bucketed_path(dev, model, params, counters, chunked_tokens) -> dict:
           and all(np.isfinite(r.score) and r.score <= 0.0 for r in reqs)
           and eng.kv.n_free == eng.kv.num_pages - 1
           and all(v > 0 for v in launches.values()))
-    log(f"[bucketed] {cfg.name} bf16, chunked_prefill=False: {len(eng.completed)}/{len(reqs)} "
+    same_tok, n_tok = token_share(reqs, chunked_tokens)
+    log(f"{tag} {cfg.name} {str(cfg.dtype).removeprefix('torch.')}, kv cache "
+        f"{cfg.kv_cache_dtype}, chunked_prefill=False: {len(eng.completed)}/{len(reqs)} "
         f"requests, {emitted} emitted tokens in {wall:.3f} s ({emitted / wall:.1f} emitted "
         f"tok/s, {eng.step_count} engine steps of {1e3 * wall / eng.step_count:.2f} ms); "
         f"prefill occupancy {eng.prefill_occupancy:.3f}, by bucket "
-        f"{json.dumps(eng.bucket_occupancy)}; launches {launches}")
-    log(f"[bucketed] {same}/{len(reqs)} requests emit phase 5's tokens exactly "
-        f"({100 * same / len(reqs):.1f}%, not gated: bf16 near-ties may differ)")
+        f"{json.dumps(eng.bucket_occupancy)}; launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    log(f"{tag} {same}/{len(reqs)} requests emit the chunked path's tokens exactly "
+        f"({100 * same / len(reqs):.1f}%), {same_tok}/{n_tok} tokens "
+        f"({100 * same_tok / max(n_tok, 1):.1f}%; not gated: bf16 near-ties may differ)")
     if not ok:
         raise AssertionError("bucketed path failed: incomplete requests, bad outputs, a "
                              "page leak, or a kernel that never launched")
@@ -1740,8 +1964,16 @@ def path_agreement_f32(dev) -> None:
         f"requests emit equal tokens, {first}/8 equal first tokens (printed, not gated)")
 
 
-def scaling_loop(dev, model, params, counters, *, n_requests: int = 24,
-                 tag: str = "[scaling]") -> None:
+# the scaling loops' stream (phases 6, 6b and 9b's loop): 7 requests arrive
+# over 30 s, on both sides of the burst at 15 s and one within 5 s of it (the
+# loop gates both).  On random weights ``appdata`` never leaves one slot, so
+# they run one after another; 24 (26 arrivals; 12 on mamba2) took 170 s of a
+# slow host's run before phase 15 needed the time
+SCALING_REQUESTS = 8
+SCALING_BURST_S = 15.0
+
+
+def scaling_loop(dev, model, params, counters, *, tag: str = "[scaling]") -> None:
     import numpy as np
     import torch
     from repro_torch.core.scaling import make_policy
@@ -1751,8 +1983,14 @@ def scaling_loop(dev, model, params, counters, *, n_requests: int = 24,
 
     V = model.cfg.vocab
     eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024), device=dev)
-    stream = request_stream(n_requests=n_requests, seed=SEED, mean_prompt=128, mean_decode=32,
-                            burst_times=(15.0,), horizon_s=30.0)
+    stream = request_stream(n_requests=SCALING_REQUESTS, seed=SEED, mean_prompt=128,
+                            mean_decode=32, burst_times=(SCALING_BURST_S,), horizon_s=30.0)
+    arrivals = [t for t, _, _ in stream]
+    near = sum(abs(t - SCALING_BURST_S) <= 5.0 for t in arrivals)
+    log(f"{tag} stream: {len(arrivals)} arrivals at {[round(t, 1) for t in arrivals]} s, "
+        f"{near} within 5 s of the burst at {SCALING_BURST_S:.0f} s")
+    if not (near and arrivals[0] < SCALING_BURST_S < arrivals[-1]):
+        raise AssertionError("the scaling stream does not span its burst")
     reqs = [Request(rid=i, arrival_s=t,
                     prompt=np.random.default_rng(i).integers(0, V, min(p, 512)),
                     max_new_tokens=max(min(d, 256), 1))
@@ -2901,7 +3139,10 @@ def sharded_train(dev, counters, tmp: str) -> None:
     both with deterministic index backwards (gate: losses, parameters and
     moments equal bit for bit: at one rank every gather and reduction is an
     identity); a train-state checkpoint of the sharded state, then
-    ``restore_resharded`` onto the mesh (gate: bit for bit);
+    ``restore_resharded`` onto the mesh (gate: bit for bit); the parameters
+    saved by a ``CheckpointManager`` and restored by its
+    ``restore_latest(template, shardings)`` (gate: bit for bit against
+    ``restore_resharded`` of the same file);
     ``compress_allreduce_pod`` over the one-rank pod group of a 1x1x1 mesh,
     twice, the second with the first's residual (gate: the reduction equals
     ``dequant(quant(g + e))`` and the residual ``g + e`` minus it, exactly);
@@ -2915,7 +3156,7 @@ def sharded_train(dev, counters, tmp: str) -> None:
 
     import torch
     import torch.distributed as dist
-    from repro_torch.checkpoint import restore_resharded, save_checkpoint
+    from repro_torch.checkpoint import CheckpointManager, restore_resharded, save_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core.elastic.remesh import measure_provision_delay
     from repro_torch.distributed.compression import (
@@ -3013,9 +3254,27 @@ def sharded_train(dev, counters, tmp: str) -> None:
             f"copy, within 1% and 64 MiB: {one_copy}): {'ok' if ok else 'FAILED'}")
         if not ok:
             failures.append("restore_resharded")
-        params_path = save_checkpoint(os.path.join(tmp, "params.npz"),
-                                      tree_map(lambda t: t.full_tensor().cpu(), sp), step=n)
         del restored, state, so
+        # the parameters through a CheckpointManager: restore_latest with the
+        # mesh's shardings is restore_resharded of its newest file
+        mgr = CheckpointManager(os.path.join(tmp, "params"), async_save=False)
+        mgr.save(tree_map(lambda t: t.full_tensor(), sp), step=n)
+        params_path = mgr.latest()
+        t0 = time.perf_counter()
+        latest, latest_meta = mgr.restore_latest(sp, p_sh)
+        latest_s = time.perf_counter() - t0
+        want, want_meta = restore_resharded(params_path, sp, p_sh)
+        same = (latest_meta == want_meta and latest_meta.get("step") == n
+                and all(torch.equal(a.to_local(), b.to_local()) and a.dtype == b.dtype
+                        and a.placements == b.placements
+                        for a, b in zip(tree_leaves(latest), tree_leaves(want))))
+        log(f"[sharded] CheckpointManager.restore_latest(template, shardings) of the "
+            f"parameters ({len(tree_leaves(latest))} leaves, {latest_s:.2f} s) against "
+            f"restore_resharded of the same file: bit for bit {same}: "
+            f"{'ok' if same else 'FAILED'}")
+        if not same:
+            failures.append("restore_latest(shardings) != restore_resharded")
+        del latest, want
 
         # int8 compression over the one-rank pod group
         pod_mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
@@ -3865,22 +4124,676 @@ def mha_prefill_path(dev) -> int:
     return noncausal
 
 
+def child_start(args):
+    """``python <args>`` on this checkout, started in a child process:
+    ``(args, start time, Popen)`` for :func:`child_finish`."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return args, time.perf_counter(), subprocess.Popen(
+        [sys.executable, *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def child_finish(tag: str, child, timeout: float, *, show=None) -> str:
+    """Waits for a :func:`child_start` child, killed past ``timeout`` seconds
+    from its start; prints its exit code, seconds and the lines ``show``
+    picks (default: the last four), fails unless it exits 0; returns its
+    standard output."""
+    args, t0, proc = child
+    try:
+        out, err = proc.communicate(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    lines = out.strip().splitlines()
+    for line in (lines[-4:] if show is None else [x for x in lines if show(x)]):
+        log(f"{tag} {line}")
+    log(f"{tag} python {' '.join(args)}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} python {' '.join(args)} failed: {out[-1500:]} "
+                             f"{err[-1500:]}")
+    return out
+
+
+def child_run(tag: str, args, timeout: float, *, show=None) -> str:
+    """:func:`child_start`, then :func:`child_finish`."""
+    return child_finish(tag, child_start(args), timeout, show=show)
+
+
 def quickstart_on_card(timeout: float = 240) -> None:
     """14c: ``examples/torch/quickstart.py`` on the card in a child process
     (the paper's policies on the port's simulator, 20 training steps of
     smollm-135m's smoke config, 6 requests served through the kernels),
     killed past ``timeout`` seconds."""
+    out = child_run("[quickstart]", (str(ROOT / "examples" / "torch" / "quickstart.py"),),
+                    timeout)
+    if "served 6 requests" not in out or "on cuda" not in out:
+        raise AssertionError(f"examples/torch/quickstart.py failed: {out[-1500:]}")
+
+
+# ---------------------------------------------------------------------------------
+# phase 15: the configurations the card had not served
+# ---------------------------------------------------------------------------------
+
+GEMMA_WINDOW_LAYERS = 6      # 15a's f32 window check: layers 0-5, five local, one global
+GEMMA_WINDOW_PREFILL = 1400  # its prefilled positions: 376 past the 1024-token window
+WINDOW_LP_TOL = 1e-4         # its gate, card against CPU: tokens equal, logprobs within
+VARIANT_TOL = 1e-5           # 15e, f32: loss and each gradient leaf, relative
+# 15a's serving loop.  ``--decode-steps 8`` (the engine's own cadence; the
+# CLI's default is 1): at one mixed iteration an engine step, a prompt over
+# 50 x 16 = 800 tokens emits nothing for more than the backend's 50
+# ``--stall-steps``, is evicted and restarted, and the run never drains, in
+# the JAX package's CLI too.  ``--requests 7`` (5 arrive: 2927 prompt and
+# 1055 new tokens, 3 rows past position 1024): ``appdata`` keeps one slot on
+# random weights, so the requests run one after another
+SERVE_CLI = ("--arch", "gemma3-4b", "--batch", "8", "--max-len", "2048", "--mean-prompt",
+             "768", "--mean-decode", "128", "--policy", "appdata", "--decode-steps", "8",
+             "--requests", "7")
+TRAIN_CLI = ("--arch", "smollm-135m", "--microbatches", "2", "--batch", "8", "--seq", "512",
+             "--steps", "6")
+
+
+def gemma_requests(vocab):
+    """Phase 15a's 16 requests: prompts seeded in 64 .. 1536 tokens (the
+    even rids from 1024 up, so at least half the rows pass position 1024,
+    where the local layers' window starts to drop keys), 16 .. 64 new."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(SEED + 150)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(rng.integers(
+                        GEMMA_WINDOW if i % 2 == 0 else 64, 1537))),
+                    max_new_tokens=int(rng.integers(16, 65))) for i in range(16)]
+
+
+def counted_model(model):
+    """``model`` with its ``prefill``, ``decode_step`` and ``verify_step``
+    counting their calls into the returned dictionary: an engine's prefill
+    groups (or single prefills), decode steps and mixed iterations."""
+    import dataclasses
+    calls = {"prefill": 0, "decode_step": 0, "verify_step": 0}
+
+    def counting(name):
+        fn = getattr(model, name)
+
+        def counted(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return counted
+
+    return dataclasses.replace(model, **{name: counting(name) for name in calls}), calls
+
+
+class attention_calls:
+    """Records, while entered, every attention-kernel call that
+    ``models/lm.py`` makes, by wrapper name: ``launches[name][window]``, the
+    launches the wrapper's own counter took during the calls at that window
+    (read before and after each call), and, for the two paged wrappers,
+    ``pages[name]``, the (page dtype, scales given, device) of each call."""
+    NAMES = ("decode_attention_mixed", "decode_attention_paged", "flash_attention_dyn")
+
+    def __enter__(self):
+        from repro_torch.models import lm
+        self._lm = lm
+        self.launches = {name: {} for name in self.NAMES}
+        self.pages = {name: set() for name in self.NAMES[:2]}
+        self._saved = {name: getattr(lm, name) for name in self.NAMES}
+        for name, fn in self._saved.items():
+            def recorded(q, k, *a, _fn=fn, _name=name, **kw):
+                window = int(kw["window"] if "window" in kw else a[1])  # flash: (q, k, v, window)
+                if _name in self.pages:
+                    self.pages[_name].add((str(k.dtype).removeprefix("torch."),
+                                           kw.get("k_scale") is not None, k.device.type))
+                before = _fn.launches
+                out = _fn(q, k, *a, **kw)
+                by_window = self.launches[_name]
+                by_window[window] = by_window.get(window, 0) + _fn.launches - before
+                return out
+            setattr(lm, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self._lm, name, fn)
+
+
+def gemma_path(dev, counters, bucketed_counters) -> dict:
+    """Phase 15a's engine: gemma3-4b ``CONFIG`` at bf16, full width and
+    depth, seeded weights, ``ServeConfig(max_batch=8, max_len=2048)``; 16
+    requests (:func:`gemma_requests`) on the chunked path, again (the same
+    tokens), then on the bucketed path.  Every request completes, pages
+    are conserved, no plain version runs; chunked: paged mixed attention
+    34 launches and the lm-head one a ``verify_step``; bucketed: flash 34
+    a prefill group, paged decode 34 a decode step, the greedy epilogue one
+    a step (groups + decode steps).  The attention launches are also
+    counted by window (:class:`attention_calls`) and gated at each window's
+    layer count a step: 29 at the local window 1024, 5 at -1.  Returns the
+    launches, those by window and the step counts."""
+    from collections import Counter
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import layer_windows
+
+    cfg = get_config("gemma3-4b")
+    L = cfg.n_layers
+    windows = layer_windows(cfg)
+    per_window = Counter(windows)                              # {1024: 29, -1: 5}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "torch" / "quickstart.py")],
-                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
-    for line in proc.stdout.strip().splitlines()[-4:]:
-        log(f"[quickstart] {line}")
-    log(f"[quickstart] exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
-    if proc.returncode != 0 or "served 6 requests" not in proc.stdout \
-            or "on cuda" not in proc.stdout:
-        raise AssertionError(f"examples/torch/quickstart.py failed: "
-                             f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    model = build_model(cfg)                                   # on the GPU
+    params = model.init_params(SEED)
+    torch.cuda.synchronize()
+    leaves = _leaves(params)
+    log(f"[gemma] {cfg.name} bf16: {L} layers, global at "
+        f"{[i for i, w in enumerate(windows) if w < 0]}, the rest window {cfg.window}; d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"untied {cfg.d_model} x {cfg.vocab} head; {sum(t.numel() for t in leaves) / 1e9:.3f} B "
+        f"parameters, {sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB, drawn "
+        f"in {time.perf_counter() - t0:.1f} s; ServeConfig(max_batch=8, max_len=2048); "
+        f"reduced: none")
+    reqs = gemma_requests(cfg.vocab)
+    past = sum(len(r.prompt) + r.max_new_tokens - 1 > GEMMA_WINDOW for r in reqs)
+    log(f"[gemma] requests: prompts {min(len(r.prompt) for r in reqs)}.."
+        f"{max(len(r.prompt) for r in reqs)} ({sum(len(r.prompt) for r in reqs)} tokens), "
+        f"{sum(r.max_new_tokens for r in reqs)} new; {past}/16 rows pass position "
+        f"{GEMMA_WINDOW}")
+
+    def by_window(steps):
+        return {w: n * steps for w, n in per_window.items()}
+
+    counted, calls = counted_model(model)
+    with no_plain() as plain, attention_calls() as seen:
+        launches, tokens = main_path(dev, counted, params, counters, requests=gemma_requests,
+                                     max_len=2048, tag="[gemma]")
+    verifies = calls["verify_step"]
+    mixed = seen.launches["decode_attention_mixed"]
+    ok = (past >= 8 and launches["fused_lmhead_greedy"] == verifies
+          and launches["decode_attention_mixed"] == L * verifies
+          and mixed == by_window(verifies) and plain.calls == 0)
+    log(f"[gemma] chunked: {verifies} verify_steps, paged mixed attention "
+        f"{launches['decode_attention_mixed']} launches ({L} a verify_step: "
+        f"{launches['decode_attention_mixed'] == L * verifies}), by window {mixed} "
+        f"({dict(per_window)} a verify_step: {mixed == by_window(verifies)}), lm-head "
+        f"{launches['fused_lmhead_greedy']} (1 a verify_step); plain-version calls "
+        f"{plain.calls}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("gemma3-4b chunked path: fewer than half the rows past 1024, a "
+                             "launch count off its step count or its windows' layer counts, "
+                             "or a plain version ran")
+    _, again = main_path(dev, counted, params, counters, requests=gemma_requests, max_len=2048,
+                         tag="[gemma again]")
+    log(f"[gemma] a second chunked drain of the same requests: tokens identical "
+        f"{again == tokens}")
+    if again != tokens:
+        raise AssertionError("gemma3-4b chunked path: two drains of the bf16 engine differ")
+    for name in calls:
+        calls[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain() as plain, attention_calls() as b_seen:
+        b_launches = bucketed_path(dev, counted, params, bucketed_counters, tokens,
+                                   requests=gemma_requests, max_len=2048,
+                                   tag="[gemma bucketed]")
+    groups, steps = calls["prefill"], calls["decode_step"]
+    flash, paged = (b_seen.launches[k] for k in ("flash_attention_dyn", "decode_attention_paged"))
+    ok = (b_launches["flash_attention_dyn"] == L * groups
+          and b_launches["decode_attention_paged"] == L * steps
+          and flash == by_window(groups) and paged == by_window(steps)
+          and b_launches["greedy_epilogue"] == groups + steps and plain.calls == 0)
+    log(f"[gemma bucketed] {groups} prefill groups, {steps} decode steps: flash "
+        f"{b_launches['flash_attention_dyn']} launches ({L} a group), by window {flash}; paged "
+        f"decode {b_launches['decode_attention_paged']} ({L} a step), by window {paged} "
+        f"({dict(per_window)} a group and a step: "
+        f"{flash == by_window(groups) and paged == by_window(steps)}); greedy epilogue "
+        f"{b_launches['greedy_epilogue']} (one a group and a step); plain-version calls "
+        f"{plain.calls}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("gemma3-4b bucketed path: a launch count off its step count or "
+                             "its windows' layer counts, or a plain version ran")
+    return {"chunked": launches, "bucketed": b_launches, "local": cfg.window,
+            "windows": {"paged_mixed_attention": mixed, "flash_attention": flash,
+                        "paged_decode_attention": paged}}
+
+
+def gemma_window_check(dev, counters) -> None:
+    """Phase 15a at model level: gemma3-4b at full width and float32, layers
+    0-5 of 34 (five local, one global; seeded weights).  Two rows prefilled
+    on the card to :data:`GEMMA_WINDOW_PREFILL` tokens (flash), their cache
+    written into 16-token pages; then the card's ``verify_step`` (paged
+    mixed attention, lm-head) and the CPU's (plain versions), each from its
+    own copy of that cache, run 16 greedy tokens a row.  Gate: tokens
+    identical, logprobs within :data:`WINDOW_LP_TOL`.  A planted fault, the
+    local layers' window dropped (-1) on the card's route only, must fail
+    that gate: the window acts at this width."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, lm
+    from repro_torch.serving.kvcache import write_prefill_pages
+
+    cfg = dataclasses.replace(get_config("gemma3-4b"), n_layers=GEMMA_WINDOW_LAYERS,
+                              dtype=torch.float32)
+    B, S, n_new, ps = 2, GEMMA_WINDOW_PREFILL, 16, 16
+    n, pre = -(-(S + n_new) // ps), -(-S // ps)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg)                                   # on the GPU
+    params = model.init_params(SEED)
+    tbl = (1 + torch.arange(B * n, dtype=torch.int32, device=dev)).view(B, n)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 151).integers(0, cfg.vocab, (B, S)))
+    logits, cache = model.prefill(params, {"tokens": toks.to(dev)}, max_len=pre * ps)
+    pages = write_prefill_pages(model.init_cache(B * n + 1, ps), cache, tbl[:, :pre])
+    tok0 = logits[:, 0].argmax(-1)
+    del cache, logits
+    base = {k: v.clone() for k, v in pages.items()}
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = to_device(params, "cpu")
+    torch.cuda.synchronize()
+    log(f"[gemma window] {cfg.name} f32, layers 0-{cfg.n_layers - 1} of 34 (windows "
+        f"{list(lm.layer_windows(cfg))}; reduced: depth 34 -> {cfg.n_layers}), {B} rows "
+        f"prefilled to {S} on the card, {n}-page rows: set up in {time.perf_counter() - t0:.1f} s")
+
+    def run(m, p, pg, where):
+        tb, tok = tbl.to(where), tok0.to(where)
+        pos = torch.full((B,), S, dtype=torch.int32, device=where)
+        out_t, out_lp = [], []
+        for _ in range(n_new):
+            t, lp, pg = m.verify_step(p, pg, tok[:, None], pos, block_table=tb)
+            tok = t[:, 0].long()
+            out_t.append(tok.cpu())
+            out_lp.append(lp[:, 0].float().cpu())
+            pos = pos + 1
+        return torch.stack(out_t, 1), torch.stack(out_lp, 1)
+
+    t0 = time.perf_counter()
+    cpu_t, cpu_lp = run(cpu_model, cpu_params, {k: v.cpu() for k, v in base.items()}, "cpu")
+    cpu_s = time.perf_counter() - t0
+    for c in counters:
+        c.launches = 0
+    gpu_t, gpu_lp = run(model, params, pages, dev)
+    launches = {c.__name__: c.launches for c in counters}
+    err = (gpu_lp - cpu_lp).abs().max().item()
+    ok = (torch.equal(gpu_t, cpu_t) and err <= WINDOW_LP_TOL
+          and launches["decode_attention_mixed"] == cfg.n_layers * n_new
+          and launches["fused_lmhead_greedy"] == n_new)
+    log(f"[gemma window] {n_new} verify_steps a row from position {S}: tokens card = CPU "
+        f"{torch.equal(gpu_t, cpu_t)}, max |logprob card - CPU| {err:.3e} (tol "
+        f"{WINDOW_LP_TOL}); card launches {launches}; the CPU's plain route "
+        f"{cpu_s:.1f} s: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("gemma3-4b past its window: the card disagrees with the CPU")
+
+    # the planted fault: the local layers' window dropped on the card's route
+    real = lm.decode_attention_mixed
+
+    def no_window(q, *a, window=-1, **kw):
+        return real(q, *a, window=-1 if q.is_cuda else window, **kw)
+
+    lm.decode_attention_mixed = no_window
+    try:
+        bad_t, bad_lp = run(model, params, base, dev)
+    finally:
+        lm.decode_attention_mixed = real
+    bad_err = (bad_lp - cpu_lp).abs().max().item()
+    caught = not (torch.equal(bad_t, cpu_t) and bad_err <= WINDOW_LP_TOL)
+    log(f"[gemma window] planted fault (window -1 on the card's local layers): tokens equal "
+        f"{torch.equal(bad_t, cpu_t)} ({int((bad_t == cpu_t).sum())}/{bad_t.numel()}), max "
+        f"|logprob - CPU| {bad_err:.3e}: the gate {'fails it' if caught else 'MISSED it'}")
+    if not caught:
+        raise AssertionError("gemma3-4b window check: the planted no-window fault passed")
+
+
+def cli_rows_past_window() -> tuple[int, int]:
+    """(rows, rows that pass position 1024) of :data:`SERVE_CLI`'s requests,
+    drawn as ``launch.serve`` draws them: its stream at its default seed and
+    60 s horizon, prompts capped at ``max_len // 2``, budgets at
+    ``max_len // 4``."""
+    from repro_torch.data import request_stream
+    opt = dict(zip(SERVE_CLI[::2], SERVE_CLI[1::2]))
+    max_len = int(opt["--max-len"])
+    stream = request_stream(n_requests=int(opt["--requests"]), seed=0,
+                            mean_prompt=int(opt["--mean-prompt"]),
+                            mean_decode=int(opt["--mean-decode"]), burst_times=(30.0,),
+                            horizon_s=60.0)
+    rows = [(min(p, max_len // 2), max(min(d, max_len // 4), 1)) for _, p, d in stream]
+    return len(rows), sum(p + d - 1 > GEMMA_WINDOW for p, d in rows)
+
+
+def cli_children(tmp: str, *, serve: bool = True, train: bool = True) -> None:
+    """Phase 15's two CLI runs on the card, started together as child
+    processes (each spends most of its time starting up):
+
+    * ``serve``: 15a's serving loop, ``python -m repro_torch.launch.serve``
+      with :data:`SERVE_CLI` (gemma3-4b at full width, ``max_len`` 2048,
+      the ``appdata`` policy; prompts capped at ``max_len // 2`` = 1024, and
+      at least two rows pass position 1024, :func:`cli_rows_past_window`):
+      it exits 0 and completes every request on the card;
+    * ``train``: 15e's ``python -m repro_torch.launch.train`` with
+      :data:`TRAIN_CLI` (smollm-135m ``CONFIG``, two microbatches of 4 x
+      512), checkpoints in ``tmp``, each step's loss read from
+      ``--loss-log``: it exits 0 and the loss falls.
+
+    A child still running when the other fails is killed."""
+    import re
+    log_path = os.path.join(tmp, "loss.log")
+    children = []
+    try:
+        if serve:
+            rows, past = cli_rows_past_window()
+            log(f"[gemma serve] {rows} requests arrive, {past} of their rows pass position "
+                f"{GEMMA_WINDOW}")
+            if past < 2:
+                raise AssertionError("launch.serve --arch gemma3-4b: fewer than two rows pass "
+                                     "the window")
+            children.append(child_start(("-m", "repro_torch.launch.serve", *SERVE_CLI)))
+        if train:
+            children.append(child_start(("-m", "repro_torch.launch.train", *TRAIN_CLI,
+                                         "--ckpt-dir", os.path.join(tmp, "ckpt"),
+                                         "--loss-log", log_path)))
+        if serve:
+            out = child_finish("[gemma serve]", children[0], 600,
+                               show=lambda line: line.startswith("[serve]"))
+            m = re.search(r"completed (\d+)/(\d+) requests", out)
+            if not (m and m.group(1) == m.group(2) and "on cuda" in out):
+                raise AssertionError(f"launch.serve --arch gemma3-4b left requests or ran off "
+                                     f"the card: {out[-1500:]}")
+        if train:
+            child_finish("[train cli]", children[-1], 600,
+                         show=lambda line: line.startswith("[train]"))
+    finally:
+        for _, _, proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if not train:
+        return
+    with open(log_path) as f:
+        losses = [float.fromhex(line.split()[1]) for line in f if line.strip()]
+    ok = len(losses) == 6 and losses[-1] < losses[0]
+    log(f"[train cli] microbatches 2: losses {[round(x, 4) for x in losses]}; the loss falls "
+        f"{losses[-1] < losses[0] if losses else False}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("launch.train --microbatches 2: the loss did not fall")
+
+
+def qwen_path(dev, counters) -> None:
+    """Phase 15b: qwen2.5-3b ``CONFIG`` at bf16, full width and depth (QKV
+    bias, GQA group 8 at D 128, untied 2048 x 151936 head), seeded weights;
+    phase 5's 16 requests on the chunked path at ``max_len`` 1024, twice.
+    Gates as in 15a: completion, pages conserved, paged mixed attention 36
+    launches and the lm-head one a ``verify_step``, no plain version, the
+    second drain's tokens equal the first's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen2.5-3b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)                                   # on the GPU
+    params = model.init_params(SEED)
+    torch.cuda.synchronize()
+    log(f"[qwen] {cfg.name} bf16: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, QKV bias {cfg.qkv_bias}, untied "
+        f"{cfg.d_model} x {cfg.vocab} head; "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB drawn in "
+        f"{time.perf_counter() - t0:.1f} s; reduced: none")
+    counted, calls = counted_model(model)
+    with no_plain() as plain:
+        launches, tokens = main_path(dev, counted, params, counters, tag="[qwen]")
+    verifies = calls["verify_step"]
+    _, again = main_path(dev, counted, params, counters, tag="[qwen again]")
+    ok = (launches["fused_lmhead_greedy"] == verifies
+          and launches["decode_attention_mixed"] == cfg.n_layers * verifies
+          and plain.calls == 0 and again == tokens)
+    log(f"[qwen] {verifies} verify_steps, paged mixed attention "
+        f"{launches['decode_attention_mixed']} launches ({cfg.n_layers} a verify_step), "
+        f"lm-head {launches['fused_lmhead_greedy']}; plain-version calls {plain.calls}; a second "
+        f"drain's tokens identical {again == tokens}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("qwen2.5-3b chunked path: a launch count off its step count, a "
+                             "plain version ran, or two drains differ")
+
+
+def int8_kv_path(dev, counters, bucketed_counters, native_tokens) -> None:
+    """Phase 15c: smollm-135m ``CONFIG`` (bf16, phase 5's seeded weights)
+    with ``kv_cache_dtype="int8"``: phase 5's requests on the chunked path,
+    then the bucketed one.  Gates: every request completes, pages are
+    conserved, no plain version runs, and every paged mixed and paged
+    decode call took int8 pages with their scales on the card (the K/V
+    quantized by ``lm._kv_quantize`` on the card and written into the
+    pages by ``kvcache.PagedOps``).  The share of tokens equal to phase
+    5's native-cache run is printed, not gated: quantization changes
+    tokens.  Then the f32 smoke references on both paths."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("smollm-135m"), kv_cache_dtype="int8")
+    torch.cuda.empty_cache()
+    model = build_model(cfg)                                   # on the GPU
+    params = model.init_params(SEED)
+    with no_plain() as plain, attention_calls() as calls:
+        _, tokens = main_path(dev, model, params, counters, tag="[int8 kv]")
+        bucketed_path(dev, model, params, bucketed_counters, tokens, tag="[int8 kv bucketed]")
+    want = {("int8", True, "cuda")}
+    ok = (plain.calls == 0 and calls.pages["decode_attention_mixed"] == want
+          and calls.pages["decode_attention_paged"] == want)
+    reqs = main_requests(cfg.vocab)
+    for r in reqs:
+        r.output = tokens[r.rid]
+    same, total = token_share(reqs, native_tokens)
+    log(f"[int8 kv] page pools seen by the kernels: {calls.pages}; plain-version calls "
+        f"{plain.calls}; chunked tokens equal to phase 5's native-cache run at {same}/{total} "
+        f"positions ({100 * same / total:.1f}%, not gated): {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("int8 KV path: a kernel saw other pages than int8 with scales on "
+                             "the card, or a plain version ran")
+    small_reference(dev, kv="int8")
+    small_reference(dev, chunked=False, kv="int8")
+
+
+def dense_fallback_path(dev, counters, native_tokens) -> None:
+    """Phase 15d: smollm-135m ``CONFIG`` at bf16 (phase 5's weights) through
+    the engine's dense-cache fallback, ``ServeConfig(max_batch=8,
+    max_len=1024, paged=False)``, on phase 5's requests: each admitted
+    request prefilled alone (flash, one launch a layer), each engine step a
+    K-step greedy decode over all 8 slots of one dense cache (the masked
+    sdpa the JAX package runs there, and the greedy epilogue).  Gates:
+    every request completes with its budget, flash launches once a layer a
+    prefill, the greedy epilogue once a prefill and a decode step, no paged
+    kernel and no plain version.  Then the f32 smoke reference, card
+    against CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = get_config("smollm-135m")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, calls = counted_model(build_model(cfg))             # on the GPU
+    params = model.init_params(SEED)
+    eng = ServingEngine(model, params, ServeConfig(max_batch=8, max_len=1024, paged=False),
+                        device=dev)
+    reqs = main_requests(cfg.vocab)
+    for r in reqs:
+        eng.submit(r)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_plain() as plain:
+        eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    prefills, steps = calls["prefill"], calls["decode_step"]
+    emitted = sum(len(r.output) for r in reqs)
+    same, total = token_share(reqs, native_tokens)
+    paged_kernels = ("decode_attention_mixed", "decode_attention_paged", "fused_lmhead_greedy")
+    ok = (not eng.paged and len(eng.completed) == len(reqs)
+          and all(len(r.output) == r.max_new_tokens for r in reqs)
+          and all(0 <= t < cfg.vocab for r in reqs for t in r.output)
+          and all(np.isfinite(r.score) and r.score <= 0.0 for r in reqs)
+          and prefills == len(reqs) and launches["flash_attention_dyn"] == cfg.n_layers * prefills
+          and launches["greedy_epilogue"] == prefills + steps
+          and not any(launches[k] for k in paged_kernels) and plain.calls == 0)
+    log(f"[dense] {cfg.name} bf16, paged=False: {len(eng.completed)}/{len(reqs)} requests, "
+        f"{emitted} emitted tokens in {wall:.3f} s ({emitted / wall:.1f} emitted tok/s, "
+        f"{eng.step_count} engine steps of {1e3 * wall / eng.step_count:.2f} ms; {prefills} "
+        f"prefills, {steps} decode steps); launches {launches} (flash {cfg.n_layers} a "
+        f"prefill, greedy epilogue one a prefill and a decode step); plain-version calls "
+        f"{plain.calls}; peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
+        f"tokens equal to phase 5's at {same}/{total} positions ({100 * same / total:.1f}%, "
+        f"not gated): {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("paged=False on smollm-135m: incomplete requests, bad outputs, "
+                             "or launches off one flash a layer a prefill and one epilogue a "
+                             "step")
+    small_reference(dev, paged=False)
+
+
+def grads_rel_err(a, b) -> tuple[float, float]:
+    """(relative loss error, worst gradient leaf's max |a - b| over its
+    largest magnitude) of two ``(loss, grads)`` pairs."""
+    from repro_torch.pytree import tree_leaves
+    l_err = abs(float(a[0]) - float(b[0])) / abs(float(b[0]))
+    g_err = max(float((x.float() - y.float()).abs().max()) / max(float(y.abs().max()), 1e-30)
+                for x, y in zip(tree_leaves(a[1]), tree_leaves(b[1])))
+    return l_err, g_err
+
+
+def train_variants(dev, counters) -> None:
+    """Phase 15e in this process (its CLI run is :func:`cli_children`'):
+    (i) smollm-135m's smoke config at float32 on the card, one step's loss
+    and gradients with ``microbatches=2`` against 1 and with
+    ``remat="dots"`` against ``"block"``, each within :data:`VARIANT_TOL`
+    (relative; the gradients leaf by leaf over the leaf's largest
+    magnitude); (ii) smollm-135m ``CONFIG`` at bf16, B 8 x S 512, 4 steps
+    under each remat policy: ms a step and peak memory.  No kernel launches
+    during any step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training import make_train_step
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    cfg = dataclasses.replace(get_smoke_config("smollm-135m"), dtype=torch.float32,
+                              remat="block")
+    batch = {k: v.to(dev) for k, v in train_batches(cfg, 1, 8, 64, SEED + 30)[0].items()}
+    params = build_model(cfg).init_params(SEED)
+
+    def grads(c, mb):
+        step = make_train_step(build_model(c), opt, microbatches=mb)
+        return no_launch_during(counters, f"15e {c.remat} mb {mb}",
+                                lambda: step.grads_of(params, batch))
+
+    ref = grads(cfg, 1)
+    mb = grads_rel_err(grads(cfg, 2), ref)
+    dots = grads_rel_err(grads(dataclasses.replace(cfg, remat="dots"), 1), ref)
+    ok = max(*mb, *dots) <= VARIANT_TOL
+    log(f"[train variants] {cfg.name} f32 B 8 x S 64 on the card: microbatches 2 vs 1 loss rel "
+        f"{mb[0]:.2e}, worst gradient leaf {mb[1]:.2e}; remat dots vs block loss rel "
+        f"{dots[0]:.2e}, worst gradient leaf {dots[1]:.2e} (tol {VARIANT_TOL}): "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("microbatches or remat='dots' changed the f32 loss or gradients")
+
+    B, S, n = 8, 512, 4
+    base = get_config("smollm-135m")
+    batches = train_batches(base, n, B, S, SEED + 31)
+    for remat in ("block", "dots"):
+        cfg = dataclasses.replace(base, remat=remat)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg)                               # on the GPU
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=n),
+                               donate=True)
+        params = model.init_params(SEED)
+        opt = adamw_init(params)
+        times, losses = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = no_launch_during(counters, f"15e {remat}",
+                                                lambda: step(params, opt, b))
+            losses.append(float(met["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = sum(times[1:]) / len(times[1:])
+        log(f"[train variants] {cfg.name} bf16 B {B} x S {S}, remat {remat!r}: losses "
+            f"{[round(x, 4) for x in losses]}; {step_stats(cfg, B, S, ms)} (steps 2-{n}); peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        del params, opt, step, model
+
+
+PHASE15_PARTS = ("a", "b", "c", "d", "e")
+
+
+def configs_phase(dev, native_tokens=None, parts=PHASE15_PARTS) -> dict | None:
+    """Phase 15 (15a-15e, or the ``parts`` of them) in order; returns
+    :func:`gemma_path`'s launches (15a's records), None without 15a.  15c
+    and 15d compare with ``native_tokens``, phase 5's tokens, and run phase
+    5 for them when not given.  15a's and 15e's CLI children run side by
+    side, with whichever of the two parts is asked for."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_mixed, decode_attention_paged)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_dyn
+    from repro_torch.kernels.sampling.ops import fused_lmhead_greedy, greedy_epilogue
+    from repro_torch.kernels.ssd.ops import ssd_intra
+    from repro_torch.models import build_model
+
+    counters = (decode_attention_mixed, fused_lmhead_greedy)
+    bucketed_counters = (flash_attention_dyn, decode_attention_paged, greedy_epilogue)
+    all_counters = (flash_attention_dyn, decode_attention_mixed, decode_attention_paged,
+                    decode_attention, greedy_epilogue, fused_lmhead_greedy, ssd_intra)
+    gemma = None
+    t0 = time.perf_counter()
+    if "a" in parts:
+        gemma = gemma_path(dev, counters, bucketed_counters)
+        torch.cuda.empty_cache()
+        gemma_window_check(dev, counters)
+    if {"a", "e"} & set(parts):
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="train-cli-") as tmp:
+            cli_children(tmp, serve="a" in parts, train="e" in parts)
+        done = [x for x, part in (("15a", "a"), ("15e's CLI run", "e")) if part in parts]
+        log(f"[phase15] {' and '.join(done)} in {time.perf_counter() - t0:.1f} s")
+    if "b" in parts:
+        t1 = time.perf_counter()
+        qwen_path(dev, counters)
+        log(f"[phase15] 15b in {time.perf_counter() - t1:.1f} s")
+    if native_tokens is None and {"c", "d"} & set(parts):
+        model = build_model(get_config("smollm-135m"))         # on the GPU
+        _, native_tokens = main_path(dev, model, model.init_params(SEED), counters)
+        del model
+    if "c" in parts:
+        t1 = time.perf_counter()
+        int8_kv_path(dev, counters, bucketed_counters, native_tokens)
+        log(f"[phase15] 15c in {time.perf_counter() - t1:.1f} s")
+    if "d" in parts:
+        t1 = time.perf_counter()
+        dense_fallback_path(dev, all_counters, native_tokens)
+        log(f"[phase15] 15d in {time.perf_counter() - t1:.1f} s")
+    if "e" in parts:
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()
+        train_variants(dev, all_counters)
+        log(f"[phase15] 15e in {time.perf_counter() - t1:.1f} s")
+    log(f"[phase15] {', '.join(f'15{p}' for p in parts)} in {time.perf_counter() - t0:.1f} s")
+    return gemma
 
 
 def main() -> int:
@@ -3928,6 +4841,7 @@ def main() -> int:
                *check_flash(dev, flush), check_dense_decode(dev, flush),
                check_ssd_intra(dev, flush)]
     records += check_family_kernels(dev, flush)
+    records += check_gemma_kernels(dev, flush)
     del scratch
     small_reference(dev)
     small_reference(dev, chunked=False)
@@ -3955,7 +4869,7 @@ def main() -> int:
     ssm_launches, ssm_wall_s = ssm_path(dev, ssm_model, ssm_params, ssm_counters)
     ssm_prefill_profile(dev, ssm_model, ssm_params, ssm_wall_s)
     dense_launches = mha_decode_path(dev, decode_attention)
-    scaling_loop(dev, ssm_model, ssm_params, ssm_counters, n_requests=12, tag="[scaling ssm]")
+    scaling_loop(dev, ssm_model, ssm_params, ssm_counters, tag="[scaling ssm]")
     profile_window(dev, ssm_model, ssm_params, tag="[profile ssm]", kind="decode steps")
 
     # the hybrid at full width: zamba2-2.7b prefill on the card
@@ -4022,6 +4936,11 @@ def main() -> int:
     lint_finish(lint_procs)
     log(f"[phase14] 14a-14d in {time.perf_counter() - t0:.1f} s")
 
+    # the configurations the card had not served: gemma3-4b, qwen2.5-3b
+    # serving, the int8 KV cache, paged=False, microbatches and remat "dots"
+    torch.cuda.empty_cache()
+    gemma = configs_phase(dev, chunked_tokens)
+
     log(f"[done] greedy_epilogue launches: {launches['greedy_epilogue']} in phase 5b, "
         f"{ssm_launches['greedy_epilogue']} in phase 5c")
     by_kernel = {"paged_mixed_attention": launches["decode_attention_mixed"],
@@ -4042,6 +4961,12 @@ def main() -> int:
                  "flash_attention[noncausal, whisper-small enc]": noncausal_launches}
     for arch in ("mixtral-8x22b", "pixtral-12b", "smollm-360m"):
         by_kernel[f"lmhead_greedy[{arch}]"] = families[arch]["fused_lmhead_greedy"]
+    # phase 15a's runs; the attention records' launches as counted at each window
+    by_kernel["lmhead_greedy[gemma3-4b]"] = gemma["chunked"]["fused_lmhead_greedy"]
+    by_kernel["greedy_epilogue[gemma3-4b]"] = gemma["bucketed"]["greedy_epilogue"]
+    for kernel, seen in gemma["windows"].items():
+        for kind, window in (("local", gemma["local"]), ("global", -1)):
+            by_kernel[f"{kernel}[gemma3-4b {kind}]"] = seen[window]
     for rec in records:
         rec["launches"] = by_kernel[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

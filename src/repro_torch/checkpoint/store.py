@@ -290,12 +290,19 @@ class CheckpointManager:
                 except OSError:
                     pass
 
-    def restore_latest(self, template=None, *, device=None, dtype=None):
-        """``(tree, meta)`` of :meth:`latest` through :func:`load_checkpoint`,
-        or ``(None, {})``."""
+    def restore_latest(self, template=None, shardings=None, *, device=None, dtype=None):
+        """``(tree, meta)`` of :meth:`latest`, or ``(None, {})``: through
+        :func:`restore_resharded` when ``shardings`` is given (the new mesh
+        sets each leaf's device, the template its dtype), else through
+        :func:`load_checkpoint`."""
         path = self.latest()
         if path is None:
             return None, {}
+        if shardings is not None:
+            if device is not None or dtype is not None:
+                raise ValueError("restore_latest: shardings place each leaf and the "
+                                 "template sets its dtype; pass no device or dtype")
+            return restore_resharded(path, template, shardings)
         return load_checkpoint(path, template, device=device, dtype=dtype)
 
 

@@ -211,12 +211,18 @@ def _chunk(shape, placements, mesh) -> tuple:
 
 
 def _mesh_state(rank, args):
-    """(c) compression on (2, 2, 2); (d) restore_resharded onto (2, 4);
+    """(c) compression on (2, 2, 2); (d) restore_resharded onto (2, 4), and
+    ``CheckpointManager.restore_latest`` with and without shardings;
     (e) remesh (4, 2) -> (2, 4) -> (8, 1); a fleet replica spawned while
     the group is up."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.checkpoint import load_checkpoint, restore_resharded, save_checkpoint
+    from repro_torch.checkpoint import (
+        CheckpointManager,
+        load_checkpoint,
+        restore_resharded,
+        save_checkpoint,
+    )
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.elastic.remesh import measure_provision_delay, scale_replicas
     from repro_torch.distributed.compression import (
@@ -284,7 +290,7 @@ def _mesh_state(rank, args):
                           for e, a in zip(tree_leaves(errs), tree_leaves(pods[pod][2])))}
     # (d) restore_resharded onto (2, 4): files the JAX package and the port wrote
     mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
-    out["restore"] = {}
+    out["restore"], out["restore_latest"] = {}, {}
     for arch in args["restore_archs"]:
         cfg = get_smoke_config(arch)
         template = build_model(cfg, device="meta").abstract_params()
@@ -304,6 +310,26 @@ def _mesh_state(rank, args):
             dtypes = sorted({str(t.dtype) for t in tree_leaves(tree)})
             out["restore"][f"{arch}/{who}"] = {"equal": same, "local_shapes_ok": shapes,
                                                "step": meta.get("step"), "dtypes": dtypes}
+        # the manager's restore_latest: with shardings it is restore_resharded
+        # of its newest file, block for block; without, the plain load
+        mgr_dir = os.path.join(args["tmp"], f"{arch}-mgr")
+        if rank == 0:
+            CheckpointManager(mgr_dir, async_save=False).save(ref, step=5)
+        dist.barrier()
+        mgr = CheckpointManager(mgr_dir, async_save=False)
+        tree, meta = mgr.restore_latest(template, sh)
+        want, want_meta = restore_resharded(mgr.latest(), template, sh)
+        plain, plain_meta = mgr.restore_latest(template, device="cpu")
+        out["restore_latest"][arch] = {
+            "blocks_equal": all(
+                isinstance(t, DTensor) and tuple(t.placements) == tuple(w.placements)
+                and t.dtype == w.dtype and torch.equal(t.to_local(), w.to_local())
+                for t, w in zip(tree_leaves(tree), tree_leaves(want))),
+            "meta_equal": meta == want_meta, "step": meta.get("step"),
+            "plain_equal": all(not isinstance(t, DTensor) and t.dtype == r.dtype
+                               and torch.equal(t, r)
+                               for t, r in zip(tree_leaves(plain), tree_leaves(ref))),
+            "plain_step": plain_meta.get("step")}
     # (e) remesh: (4, 2) -> (2, 4) -> (8, 1), then a provision delay at (4, 2)
     cfg = dataclasses.replace(get_smoke_config("smollm-360m"), dtype=torch.float32)
     model = build_model(cfg, device="cpu")

@@ -424,6 +424,89 @@ def test_lmhead_bf16_ties_across_blocks(N, tied):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "tie"])
+def test_lmhead_bf16_gemma3_untied_head(kind):
+    """gemma3-4b's untied 2560 x 262144 head at the chunked step's 128 rows,
+    the kernel's widest vocabulary: seeded inputs against the plain
+    version, and exact maxima (integer inputs) at columns 300 and 200000,
+    in the tiles of two different persistent blocks: the first maximal
+    index wins, as in the plain version and the plain version of the
+    kernel's walk."""
+    from repro_torch.kernels.sampling.ops import _kernel, _sm_count
+    dev = require_cuda()
+    N, d, V = 128, 2560, 262144
+    if kind == "normal":
+        h, emb = _lmhead_bf16(dev, N, d, V, seed=V)
+        _check_lmhead(h, emb.T.contiguous())
+        return
+    g = torch.Generator(device=dev).manual_seed(N)
+    h = torch.randint(-2, 3, (N, d), generator=g, device=dev, dtype=torch.int8).bfloat16()
+    w = torch.randint(-1, 2, (d, V), generator=g, device=dev, dtype=torch.int8).bfloat16()
+    w[:, 300] = w[:, 200000] = torch.sign(h[0].float()).bfloat16()
+    tok, lp = fused_lmhead_greedy(h, w)
+    torch.cuda.synchronize()
+    tok_p, lp_p = lmhead_greedy_plain(h, w)
+    blocks = _kernel()[1](1, N, V, _sm_count(dev.index or 0))
+    assert (300 // 128) % blocks != (200000 // 128) % blocks      # two different blocks
+    tok_w, _ = lmhead_greedy_walk_plain(h, w, n_blocks=blocks)
+    assert tok[0].item() == 300
+    assert torch.equal(tok, tok_p) and torch.equal(tok, tok_w)
+    torch.testing.assert_close(lp, lp_p, atol=1e-3, rtol=0)
+
+
+GEMMA_STARTS = [0, 17, 130, 1010, 1100, 1500, 1893, 2032]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [-1, 1024])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_mixed_attention_gemma3_heads_128_page_rows(dtype, window):
+    """Paged mixed attention at gemma3-4b's heads (8 / 4 of 256): 8 rows of
+    16 queries over 128-page rows of 16 tokens (``max_len`` 2048), starts
+    up to the row's end, the global layers' window -1 and the local
+    layers' 1024; bf16 and int8 pages, against the plain version."""
+    dev = require_cuda()
+    q, kp, vp, ks, vs, tbl, starts = mixed_inputs(2, dtype == "int8", T=16, Hkv=4, D=256,
+                                                   ps=16, n=128, starts=GEMMA_STARTS)
+    args = [torch.from_numpy(q).to(dev, torch.bfloat16)]
+    if dtype == "int8":
+        args += [torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)]
+        sc = dict(k_scale=torch.from_numpy(ks).to(dev), v_scale=torch.from_numpy(vs).to(dev))
+    else:
+        args += [torch.from_numpy(kp).to(dev, torch.bfloat16),
+                 torch.from_numpy(vp).to(dev, torch.bfloat16)]
+        sc = {}
+    args += [torch.from_numpy(tbl).to(dev), torch.from_numpy(starts).to(dev)]
+    before = decode_attention_mixed.launches
+    out = decode_attention_mixed(*args, window=window, **sc)
+    torch.cuda.synchronize()
+    assert decode_attention_mixed.launches == before + 1
+    ref = paged_mixed_attention_plain(*args, window=window, **sc)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [-1, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_gemma3_bucket_2048(dtype, window):
+    """Flash attention at gemma3-4b's heads (8 / 4 of 256) over a 2048
+    bucket, B 2, the global layers' window -1 and the local layers' 1024,
+    against the plain version."""
+    dev = require_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dev, dt)
+               for a in flash_inputs(2, B=2, S=2048, Hkv=4, D=256, seed=4))
+    before = flash_attention_dyn.launches
+    out = flash_attention_dyn(q, k, v, window)
+    torch.cuda.synchronize()
+    assert flash_attention_dyn.launches == before + 1
+    ref = flash_attention_plain(q, k, v, window)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
 def test_lmhead_bf16_rejects_unsupported_inputs():
     dev = require_cuda()
     h, emb = _lmhead_bf16(dev, 8, 24, 256, seed=0)

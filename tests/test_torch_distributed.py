@@ -323,6 +323,25 @@ def test_restore_resharded(arch, writer, mesh_out):
         assert r["dtypes"] == ["torch.bfloat16", "torch.float32"], r
 
 
+@pytest.mark.parametrize("arch", RESTORE_ARCHS)
+def test_restore_latest_with_shardings(arch, mesh_out):
+    """``CheckpointManager.restore_latest(template, shardings)``, as the JAX
+    method takes them, onto (2, 4) on 8 gloo ranks: each rank's blocks,
+    placements, dtypes and the meta equal ``restore_resharded`` of the same
+    newest checkpoint bit for bit."""
+    r = mesh_out["restore_latest"][arch]
+    assert r["blocks_equal"] and r["meta_equal"] and r["step"] == 5, r
+
+
+@pytest.mark.parametrize("arch", RESTORE_ARCHS)
+def test_restore_latest_without_shardings_unchanged(arch, mesh_out):
+    """With no ``shardings`` the manager still loads plain tensors through
+    ``load_checkpoint`` on every rank, bit for bit, whether or not a group
+    is up."""
+    r = mesh_out["restore_latest"][arch]
+    assert r["plain_equal"] and r["plain_step"] == 5, r
+
+
 @pytest.mark.parametrize("i,mesh", [(0, [4, 2]), (1, [2, 4]), (2, [8, 1])])
 def test_remesh_keeps_every_value(i, mesh, mesh_out):
     """``scale_replicas`` (4, 2) -> (2, 4) -> (8, 1) over 8 ranks: every
